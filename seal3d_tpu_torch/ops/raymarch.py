@@ -1,0 +1,313 @@
+"""Occupancy-grid ray marching: the two-level eval march (port of the
+two-level path of seal3d_tpu/ops/raymarch.py).
+
+The march keeps the reference's static-shape design (fixed candidate ladder,
+occupancy tests as gathers, packing by one sort of unique flat-index keys,
+graceful Bresenham thinning when demand exceeds a budget) so its packed
+buffers match the reference slot for slot. Index tensors are int64 here (the
+reference's int32); the float arithmetic follows the reference expression by
+expression, including the float32 Bresenham divisions, because the selected
+samples depend on their exact rounding. The single-level train march
+(`march_candidates`, `compact_flat_direct`, `march_rays_flat`) belongs to the
+training slice.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from seal3d_tpu_torch.ops.bitfield import GRID_SIZE, bitfield_lookup
+from seal3d_tpu_torch.ops.morton import morton3d
+
+SQRT3 = 1.7320508075688772
+
+
+@functools.cache
+def _mort_of_lin(res: int, device: torch.device) -> torch.Tensor:
+    """MORT_OF_LIN[x*res^2 + y*res + z] = morton(x, y, z)."""
+    r = torch.arange(res, device=device)
+    return morton3d(torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                                dim=-1)).reshape(-1)
+
+
+def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """[0, x0, x0+x1, ...] without the total (the reference's
+    concatenate([0], cumsum(x)[:-1]))."""
+    c = torch.cumsum(x, 0)
+    return torch.cat([c.new_zeros(1), c[:-1]])
+
+
+def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                       aabb: torch.Tensor, min_near: float = 0.05):
+    """Slab test of rays vs an AABB [6]; misses get near = far = 1e9."""
+    inv_d = 1.0 / torch.where(rays_d.abs() > 1e-15, rays_d, 1e-15)
+    t0 = (aabb[:3] - rays_o) * inv_d
+    t1 = (aabb[3:] - rays_o) * inv_d
+    tmin = torch.minimum(t0, t1).amax(-1)
+    tmax = torch.maximum(t0, t1).amin(-1)
+    near = tmin.clamp(min=min_near)
+    far = torch.maximum(tmax, near + 1e-6)
+    miss = tmax < tmin
+    return torch.where(miss, 1e9, near), torch.where(miss, 1e9, far)
+
+
+def mip_from_pos(x: torch.Tensor, max_cascade: int) -> torch.Tensor:
+    """Smallest cascade whose [-2^c, 2^c] box contains x."""
+    mx = x.abs().amax(-1)
+    mip = torch.ceil(torch.log2(mx.clamp(min=1e-8)))
+    return mip.clamp(0, max_cascade - 1).to(torch.int64)
+
+
+def mip_from_dt(dt: torch.Tensor, max_cascade: int) -> torch.Tensor:
+    """Smallest cascade whose cell size exceeds dt."""
+    mip = torch.ceil(torch.log2((dt * GRID_SIZE * 0.5).clamp(min=1e-8)))
+    return mip.clamp(0, max_cascade - 1).to(torch.int64)
+
+
+def occupancy_at(x: torch.Tensor, dt: torch.Tensor, bitfield: torch.Tensor,
+                 cascades: int, bound: Optional[float] = None) -> torch.Tensor:
+    """Occupancy bit for world positions x [..., 3] at step size dt [...]."""
+    mip = torch.maximum(mip_from_pos(x, cascades), mip_from_dt(dt, cascades))
+    mip_bound = torch.exp2(mip.to(torch.float32))
+    if bound is not None:
+        mip_bound = mip_bound.clamp(max=bound)
+    cell = ((x / mip_bound[..., None] * 0.5 + 0.5) * GRID_SIZE).to(torch.int64)
+    cell = cell.clamp(0, GRID_SIZE - 1)
+    return bitfield_lookup(bitfield, mip, morton3d(cell))
+
+
+def coarse_tighten(rays_o, rays_d, bitfield, nears, fars, cascades: int,
+                   bound: float, n_steps: int = 64):
+    """Per-ray [near, far] tightening from the 16^3 coarse occupancy view (64
+    consecutive bitfield bytes = one 8^3 fine block = one coarse cell).
+    Single cascade; the reference's per-mip views (bound > 1) belong to the
+    single-level march."""
+    if cascades != 1:
+        raise NotImplementedError(
+            "multi-cascade coarse tightening is not ported yet: ROADMAP.md "
+            "Queue 1, '1l eval'")
+    n = n_steps
+    frac = (torch.arange(n, dtype=torch.float32, device=nears.device) + 0.5) / n
+    tc = nears[:, None] + frac[None, :] * (fars - nears)[:, None]
+    xyz = rays_o[:, None, :] + tc[..., None] * rays_d[:, None, :]
+    coarse = bitfield.reshape(4096, 64).amax(-1) > 0
+    cell = (((xyz / bound) * 0.5 + 0.5) * 16.0).clamp(0.0, 15.0) \
+        .to(torch.int64)
+    occ = coarse[morton3d(cell)] & (tc < fars[:, None])
+    any_hit = occ.any(dim=1)
+    occ_i = occ.to(torch.uint8)
+    first = torch.argmax(occ_i, dim=1).to(torch.float32)
+    last = (n - 1 - torch.argmax(occ_i.flip(1), dim=1)).to(torch.float32)
+    dt_c = (fars - nears) / n
+    near2 = torch.maximum(nears + (first - 1.0) * dt_c, nears)
+    far2 = torch.minimum(nears + (last + 2.0) * dt_c, fars)
+    return (torch.where(any_hit, near2, fars), torch.where(any_hit, far2, fars))
+
+
+def pooled_dilated(bitfield: torch.Tensor, cascades: int,
+                   pool: int = 32) -> torch.Tensor:
+    """pool^3 pooled + 3^3-dilated occupancy view, linear (x-major) order:
+    [cascades * pool^3] bool. One byte = one 64^3 cell, 8 bytes = one 32^3
+    cell (Morton order is hierarchical)."""
+    if pool == 64:
+        pooled = bitfield.reshape(cascades, 64**3) > 0
+    elif pool == 32:
+        pooled = bitfield.reshape(cascades, 32768, 8).amax(-1) > 0
+    else:
+        raise ValueError("pooled views exist at 32^3 and 64^3")
+    dense = pooled[:, _mort_of_lin(pool, bitfield.device)]
+    d = torch.nn.functional.pad(
+        dense.reshape(cascades, pool, pool, pool), (1, 1, 1, 1, 1, 1))
+    d = d[:, :-2] | d[:, 1:-1] | d[:, 2:]
+    d = d[:, :, :-2] | d[:, :, 1:-1] | d[:, :, 2:]
+    d = d[..., :-2] | d[..., 1:-1] | d[..., 2:]
+    return d.reshape(-1)
+
+
+class MarchedRays(NamedTuple):
+    """Flat, ray-contiguous compacted sample buffer (static budget M)."""
+
+    xyzs: torch.Tensor     # [M, 3] sample positions
+    dirs: torch.Tensor     # [M, 3] ray directions per sample
+    deltas: torch.Tensor   # [M] step length (thinning-compensated)
+    ts: torch.Tensor       # [M] distance along the ray
+    ray_id: torch.Tensor   # [M] owning ray (clipped for invalid slots)
+    valid: torch.Tensor    # [M] bool
+    offsets: torch.Tensor  # [N] start of each ray's segment
+    counts: torch.Tensor   # [N] kept samples per ray
+
+
+class GroupPlan(NamedTuple):
+    """Level-1 result of the two-level march."""
+
+    t0: torch.Tensor      # [N] ladder start (near, perturbed)
+    fars: torch.Tensor    # [N]
+    stride: torch.Tensor  # [N] per-ray group subsample stride
+    keep: torch.Tensor    # [N, CG] bool kept-group mask
+    dt_min: float
+
+
+def group_plan(rays_o, rays_d, bitfield, bound: float, cascades: int,
+               max_steps: int, k: int, num_candidates: int, group: int = 8,
+               min_near: float = 0.05,
+               aabb: Optional[torch.Tensor] = None, coarse_steps: int = 0,
+               kg: int = 0, pool: int = 32) -> GroupPlan:
+    """Level 1 of the two-level march: AABB clip, coarse tighten, group
+    midpoint test against the dilated pooled view, per-ray group stride.
+    kg: per-ray kept-group cap; 0 = k // group, -1 = no cap, > 0 explicit."""
+    g = group
+    c = num_candidates
+    if c % g:
+        raise ValueError("num_candidates must divide into groups")
+    cg = c // g
+    kg = cg if kg < 0 else (kg if kg > 0 else max(k // g, 1))
+    dt_min = 2.0 * SQRT3 / max_steps
+    if not (g - 1) * dt_min < 2.0 * bound / pool:
+        raise ValueError("group span exceeds the pooled cell; the midpoint "
+                         "test would not be conservative")
+    if cascades != 1:
+        raise ValueError("the two-level march is single-cascade")
+    dev = rays_o.device
+    if aabb is None:
+        aabb = torch.tensor([-bound] * 3 + [bound] * 3, dtype=torch.float32,
+                            device=dev)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
+    if coarse_steps > 0:
+        nears, fars = coarse_tighten(rays_o, rays_d, bitfield, nears, fars,
+                                     cascades, bound, n_steps=coarse_steps)
+    t0 = nears  # the training slice adds the jittered start here
+
+    gi = torch.arange(cg, dtype=torch.float32, device=dev)
+    tm = t0[:, None] + (gi * g + (g - 1) * 0.5)[None, :] * dt_min
+    xyz_m = rays_o[:, None, :] + tm[..., None] * rays_d[:, None, :]
+    cell = ((xyz_m / bound * 0.5 + 0.5) * pool).clamp(0.0, pool - 1.0) \
+        .to(torch.int64)
+    lin = (cell[..., 0] * pool + cell[..., 1]) * pool + cell[..., 2]
+    occ_g = pooled_dilated(bitfield, cascades, pool)[lin]
+    t_first = t0[:, None] + (gi * g)[None, :] * dt_min
+    valid_g = occ_g & (t_first < fars[:, None])
+
+    rank = torch.cumsum(valid_g.to(torch.int64), dim=1)
+    count = rank[:, -1:]
+    stride = torch.ceil(count / kg).to(torch.int64).clamp(min=1)[:, 0]
+    keep = valid_g & (((rank - 1) % stride[:, None]) == 0)
+    return GroupPlan(t0=t0, fars=fars, stride=stride, keep=keep, dt_min=dt_min)
+
+
+def _bresenham_keep(mask: torch.Tensor, budget: int) -> torch.Tensor:
+    """Evenly thin a flat mask to ~budget members over its global rank; an
+    identity under budget. float32 division and truncation exactly as the
+    reference writes them: the kept set depends on their rounding."""
+    r = torch.cumsum(mask.to(torch.int64), 0)
+    s = torch.clamp(r[-1].to(torch.float32) / budget, min=1.0)
+    return mask & ((r.to(torch.float32) / s).to(torch.int64)
+                   != ((r - 1).to(torch.float32) / s).to(torch.int64))
+
+
+def _pack(mask: torch.Tensor, budget: int):
+    """Stable compaction of a flat mask into `budget` slots: the reference's
+    single sort of unique keys (kept index, else index + n). Returns (source
+    index per slot, slot valid)."""
+    n = mask.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=mask.device)
+    sel = torch.sort(torch.where(mask, idx, idx + n)).values[:budget]
+    ok = sel < n
+    return torch.where(ok, sel, sel - n), ok
+
+
+def pack_groups_expand_fine(plan: GroupPlan, keep: torch.Tensor, col0: int,
+                            rays_o, rays_d, bitfield, bound: float,
+                            cascades: int, g: int, budget: int,
+                            budget_g: int, occ_stride: int) -> MarchedRays:
+    """Levels pack/2/repack of the two-level march over group columns
+    [col0, col0 + keep.shape[1]): pack kept groups into budget_g slots,
+    expand each to its g members, fine-test them against the bitfield,
+    repack the fine-valid members into `budget` slots. Overflow of either
+    budget thins evenly (Bresenham) and rescales each ray's deltas by its
+    kept fraction."""
+    n, csg = keep.shape
+    dev = keep.device
+    budget_g = min(budget_g, n * csg)
+
+    keep_all = keep.reshape(-1)
+    keepf = _bresenham_keep(keep_all, budget_g)
+    counts_g_all = keep.sum(1)
+    counts_g = keepf.reshape(n, csg).sum(1)
+    gscale = counts_g_all.to(torch.float32) / counts_g.clamp(min=1)
+
+    selg, kept_g = _pack(keepf, budget_g)
+    ray_g = selg // csg
+    gidx = selg % csg + col0
+
+    t0_g = plan.t0[ray_g]
+    far_g = plan.fars[ray_g]
+    str_g = plan.stride[ray_g].to(torch.float32)
+    ro_g = rays_o[ray_g]
+    rd_g = rays_d[ray_g]
+    j = torch.arange(g, dtype=torch.float32, device=dev)
+    cand = gidx.to(torch.float32)[:, None] * g + j[None, :]
+    ts_2 = t0_g[:, None] + cand * plan.dt_min
+    xyz_2 = ro_g[:, None, :] + ts_2[..., None] * rd_g[:, None, :]
+    dts_2 = (plan.dt_min * str_g)[:, None].expand(ts_2.shape)
+    if occ_stride > 1 and g % occ_stride == 0:
+        occ_f = occupancy_at(xyz_2[:, ::occ_stride], dts_2[:, ::occ_stride],
+                             bitfield, cascades, bound)
+        occ_f = occ_f.repeat_interleave(occ_stride, dim=1)
+    else:
+        occ_f = occupancy_at(xyz_2, dts_2, bitfield, cascades, bound)
+    valid_2 = (kept_g[:, None] & occ_f & (ts_2 < far_g[:, None])
+               & (xyz_2.abs().amax(-1) <= bound))
+
+    v2_all = valid_2.reshape(-1)
+    v2 = _bresenham_keep(v2_all, budget)
+    sel2, valid_f = _pack(v2, budget)
+    ray_id = ray_g[sel2 // g]
+    ts_f = ts_2.reshape(-1)[sel2]
+    dts_f = dts_2.reshape(-1)[sel2]
+    rd = rays_d[ray_id]
+    xyzs = rays_o[ray_id] + ts_f[:, None] * rd
+
+    # per-ray fine counts: ray r's members occupy fine slots
+    # [gstart_r*g, gend_r*g) of the ray-contiguous group pack
+    gstarts = _excl_cumsum(counts_g)
+    fs = gstarts.clamp(max=budget_g) * g
+    fe = (gstarts + counts_g).clamp(max=budget_g) * g
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    cum0 = torch.cat([zero, torch.cumsum(v2.to(torch.int64), 0)])
+    counts = cum0[fe] - cum0[fs]
+    offsets = _excl_cumsum(counts)
+    kept = (offsets + counts).clamp(max=budget) - offsets.clamp(max=budget)
+
+    cum_all = torch.cat([zero, torch.cumsum(v2_all.to(torch.int64), 0)])
+    counts_all_f = cum_all[fe] - cum_all[fs]
+    fscale = counts_all_f.to(torch.float32) / counts.clamp(min=1)
+    dts_f = dts_f * (gscale * fscale)[ray_id.clamp(0, n - 1)]
+    return MarchedRays(
+        xyzs=xyzs, dirs=rd, deltas=dts_f, ts=ts_f,
+        ray_id=ray_id.clamp(0, n - 1), valid=valid_f,
+        offsets=offsets.clamp(max=budget), counts=kept.clamp(min=0))
+
+
+def march_rays_flat_2level(rays_o, rays_d, bitfield, bound: float,
+                           cascades: int, max_steps: int, k: int, budget: int,
+                           num_candidates: int,
+                           min_near: float = 0.05,
+                           aabb: Optional[torch.Tensor] = None,
+                           occ_stride: int = 4, coarse_steps: int = 0,
+                           group: int = 8, over: float = 1.5, kg: int = 0,
+                           pool: int = 32) -> MarchedRays:
+    """Two-level hierarchical flat march (uniform ladder, cascades == 1):
+    group midpoints against the dilated pooled view, then only surviving
+    groups reach the fine bitfield; two sort-packs into static budgets."""
+    plan = group_plan(rays_o, rays_d, bitfield, bound=bound,
+                      cascades=cascades, max_steps=max_steps, k=k,
+                      num_candidates=num_candidates, group=group,
+                      min_near=min_near, aabb=aabb,
+                      coarse_steps=coarse_steps, kg=kg, pool=pool)
+    budget_g = max(-(-int(round(budget * over)) // (group * 16)) * 16, 16)
+    return pack_groups_expand_fine(plan, plan.keep, 0, rays_o, rays_d,
+                                   bitfield, bound, cascades, group, budget,
+                                   budget_g, occ_stride)
