@@ -20,7 +20,20 @@ Phases, each of which raises (exit code != 0) when it fails:
 4. K1 against the plain version on the packed samples of a real 800x800
    render chunk (<= 1e-5), timed at that shape;
 5. the card's render of a 64x64 view against the same render on the CPU
-   through the plain version (a reference on a small input).
+   through the plain version (a reference on a small input);
+6. K1's backward (halo_encode_bwd) against its plain PyTorch version at the
+   -O widths (L=16, T=2^15, F=4 and F=2): M=196,608 (one [N, K] train
+   step, 4096 rays x 48) all valid, and M=2^20 with 25% invalid rows. The
+   table gradient within BWD_RTOL of its largest entry, invalid rows adding
+   nothing; both times from CUDA events;
+7. the train path at full -O width through the port's CLI (`python -m
+   seal3d_tpu_torch.main_nerf synthetic -O --bound 1.0 --dt_gamma 0
+   --min_near 0.05 --max_steps 512 --iters 576 --H 256 --W 256`): the loss
+   falls, the step-576 checkpoint holds the optimizer state, K1's backward
+   ran once per train step and its forward once per field call, and the val
+   PSNR is >= 25 dB. Prints ms per step and train rays/s over the steps
+   after the first 48, the seconds of the full and partial grid updates, and
+   a torch.profiler breakdown of three more train steps.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without a CUDA device
 the script exits non-zero before printing any result.
@@ -39,6 +52,12 @@ import numpy as np
 import torch
 
 TOL = 1e-5  # K1 vs plain: fp32 both, summation order only
+# K1 backward vs plain, relative to the largest gradient entry: fp32 atomics
+# (and the plain index_add_, itself an atomic scatter on the card) sum up to
+# a few thousand terms per row in an order that changes from run to run
+BWD_RTOL = 1e-5
+TRAIN_STEPS = 576
+MIN_VAL_PSNR = 25.0  # a field with broken gradients stays near 12-15 dB
 
 
 def check(cond: bool, msg: str):
@@ -106,6 +125,14 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         ws = args.workspace or tmp
         kernels = run_phases(dev, ws)
+        bwd_err, bwd_ms, bwd_plain_ms = k1_bwd_phase(dev)
+        fwd_launches, bwd_launches = train_phase(os.path.join(ws, "train"))
+    kernels[0]["launches"] += fwd_launches
+    kernels.append({"name": "halo_encode_bwd", "route": "cuda",
+                    "source": "seal3d_tpu_torch/csrc/halo_encode.cu",
+                    "replaces": "seal3d_tpu/ops/pallas/halo_encode.py:429",
+                    "launches": bwd_launches, "max_abs_err": bwd_err,
+                    "ms": bwd_ms, "plain_ms": bwd_plain_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -125,7 +152,7 @@ def run_phases(dev, ws):
     from seal3d_tpu_torch.ops.hashgrid import HashGridConfig
     from seal3d_tpu_torch.render.occupancy import (occupancy_init,
                                                    occupancy_update)
-    from seal3d_tpu_torch.render.renderer import march_eval
+    from seal3d_tpu_torch.render.renderer import march_flat
     from seal3d_tpu_torch.train.checkpoint import map_tree
     from seal3d_tpu_torch.train.trainer import Trainer
 
@@ -226,7 +253,7 @@ def run_phases(dev, ws):
                                    len(s))[0]) for s in full]
     idx = torch.as_tensor(full[int(np.argmax(demand))], device=dev)
     opts = dataclasses.replace(tr2.eval_opts, flat_frac=tr2.cfg.eval_flat_frac)
-    mf = march_eval(rays["rays_o"][idx], rays["rays_d"][idx], st.occ.bitfield,
+    mf = march_flat(rays["rays_o"][idx], rays["rays_d"][idx], st.occ.bitfield,
                     opts, tr2._march_aabb(st.occ.occ_aabb))
     xn = ((mf.xyzs + fcfg.bound) / (2.0 * fcfg.bound)).contiguous()
     table = torch.cat([st.ema_params["encoder"], st.ema_params["encoder_color"]],
@@ -260,6 +287,171 @@ def run_phases(dev, ws):
              "replaces": "seal3d_tpu/ops/pallas/halo_encode.py:368",
              "launches": launches, "max_abs_err": max_err,
              "ms": ms, "plain_ms": plain_ms}]
+
+
+def k1_bwd_phase(dev):
+    """Phase 6 -> (max abs err, kernel ms, plain ms) of the M=196,608 F=4
+    case (the train step's shape); every case is checked."""
+    from seal3d_tpu_torch.ops.halo_encode import (halo_encode_bwd,
+                                                  halo_encode_bwd_plain)
+    from seal3d_tpu_torch.ops.hashgrid import HashGridConfig
+
+    cfg = HashGridConfig(num_levels=16, log2_hashmap_size=15,
+                         desired_resolution=2048, gridtype="wrap",
+                         backend="halo")
+    n = cfg.total_params
+    rng = np.random.default_rng(1)
+    result = None
+    for m, frac_invalid in ((4096 * 48, 0.0), (2**20, 0.25)):
+        x = torch.from_numpy(rng.uniform(0, 1, (m, 3)).astype(np.float32)).to(dev)
+        valid = None
+        if frac_invalid:
+            valid = torch.from_numpy(rng.uniform(size=m) >= frac_invalid).to(dev)
+        for f in (4, 2):
+            g = torch.from_numpy(rng.uniform(-1, 1, (m, 16 * f))
+                                 .astype(np.float32)).to(dev)
+            ref = halo_encode_bwd_plain(g, x, valid, cfg, n)
+            out = halo_encode_bwd(g, x, valid, cfg, n)
+            scale = float(ref.abs().max())
+            err = float((out - ref).abs().max())
+            msg = ""
+            if valid is not None:  # invalid rows' (nonzero) g adds nothing
+                alone = halo_encode_bwd(torch.where(valid[:, None], g, 0.0),
+                                        x, None, cfg, n)
+                inv = float((alone - ref).abs().max())
+                check(inv <= BWD_RTOL * scale,
+                      f"K1 bwd: invalid rows changed the gradient by {inv}")
+                msg = f", invalid rows add {inv:.3e}"
+            p1 = time_ms(lambda: halo_encode_bwd_plain(g, x, valid, cfg, n), 3)
+            k1 = time_ms(lambda: halo_encode_bwd(g, x, valid, cfg, n))
+            k2 = time_ms(lambda: halo_encode_bwd(g, x, valid, cfg, n))
+            p2 = time_ms(lambda: halo_encode_bwd_plain(g, x, valid, cfg, n), 3)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            print(f"[k1 bwd] M={m} L=16 T=2^15 F={f} invalid {frac_invalid}: "
+                  f"max_abs_err {err:.3e} (max |grad| {scale:.3e}, "
+                  f"rel {err / scale:.3e}){msg}; kernel {ms:.3f} ms plain "
+                  f"{plain_ms:.3f} ms")
+            check(err <= BWD_RTOL * scale,
+                  f"K1 bwd M={m} F={f} disagrees with plain: {err} of {scale}")
+            if result is None:
+                result = (err, ms, plain_ms)
+    return result
+
+
+def train_phase(ws):
+    """Phase 7 -> (K1 forward launches, K1 backward launches) of the CLI
+    training run."""
+    from seal3d_tpu_torch import main_nerf
+    from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_bwd
+
+    argv = ["synthetic", "-O", "--bound", "1.0", "--dt_gamma", "0",
+            "--min_near", "0.05", "--max_steps", "512", "--iters",
+            str(TRAIN_STEPS), "--H", "256", "--W", "256", "--device", "cuda",
+            "--workspace", ws]
+    halo_encode.launches = halo_encode_bwd.launches = 0
+    t0 = time.perf_counter()
+    tr = main_nerf.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    fwd, bwd = halo_encode.launches, halo_encode_bwd.launches
+
+    st = tr.train_stats
+    grid = st["grid_updates"]
+    full = [s for f, s in grid if f]
+    part = [s for f, s in grid if not f]
+    step_ms = st["window_s"] / st["window_steps"] * 1e3
+    rays_s = tr.cfg.num_rays * st["window_steps"] / st["window_s"]
+    print(f"[train] main_nerf {TRAIN_STEPS} steps at 256x256: {cli_s:.2f} s "
+          f"in all (data, training, eval, 8 test renders)")
+    print(f"[train] steps {st['steps'] - st['window_steps'] + 1}-"
+          f"{st['steps']}: {step_ms:.3f} ms per step, {rays_s:.0f} train "
+          f"rays/s (grid updates included); full grid update "
+          f"{np.mean(full):.4f} s (x{len(full)}), partial "
+          f"{np.mean(part):.4f} s (x{len(part)}); final flat_frac "
+          f"{tr.opts.flat_frac}")
+    losses = [h["loss"] for h in tr.history]
+    print(f"[train] logged losses {[round(v, 5) for v in losses]} at steps "
+          f"{[h['step'] for h in tr.history]}")
+    check(len(losses) >= 2 and losses[-1] < losses[0],
+          f"the loss did not fall: {losses}")
+    ckpt = os.path.join(ws, "checkpoints", f"ngp_step{TRAIN_STEPS:07d}.npz")
+    with np.load(ckpt) as data:
+        keys = [k for k in data.files if k.startswith("opt_state/")]
+        counts = [int(data["opt_state/0/count"]), int(data["opt_state/1/count"])]
+    print(f"[train] {os.path.basename(ckpt)}: {len(keys)} opt_state arrays, "
+          f"counts {counts}")
+    check(counts == [TRAIN_STEPS] * 2 and len(keys) == 2 * 7 + 2,
+          f"checkpoint optimizer state: {len(keys)} keys, counts {counts}")
+    n_full, n_part = len(full), len(part)
+    chunks = sum(s["chunks_rendered"] for s in tr.render_stats)
+    field_calls = TRAIN_STEPS + 16 * n_full + 3 * n_part + chunks
+    print(f"[train] K1 launches: backward {bwd} (train steps {TRAIN_STEPS}), "
+          f"forward {fwd} (field calls {field_calls}: {TRAIN_STEPS} steps, "
+          f"{n_full}x16 + {n_part}x3 grid-update chunks, {chunks} rendered "
+          f"eval/test chunks)")
+    check(bwd == TRAIN_STEPS, f"K1 bwd launches {bwd} != steps {TRAIN_STEPS}")
+    check(fwd == field_calls, f"K1 fwd launches {fwd} != field calls "
+                              f"{field_calls}")
+    psnr = tr.eval_history[-1]["psnr"]
+    print(f"[train] val PSNR {psnr:.2f} dB over 4 views at 256x256 (for "
+          f"reading only, not like for like: the JAX reference reached 38.92 "
+          f"dB after 576 steps on a train view in its TPU run, "
+          f"BENCH_r05.json)")
+    check(psnr >= MIN_VAL_PSNR, f"val PSNR {psnr:.2f} < {MIN_VAL_PSNR}")
+    pngs = [f for f in os.listdir(os.path.join(ws, "results"))
+            if f.endswith(".png")]
+    check(len(pngs) == 8, f"{len(pngs)} test PNGs written")
+    profile_steps(tr)
+    return fwd, bwd
+
+
+def profile_steps(tr, n: int = 3):
+    """torch.profiler over n train steps (after one warm-up step under the
+    profiler): kernel launches, device busy time (kernels only), the host
+    time and device-timeline span of the `step.*` and `render.*` ranges (the
+    backward's kernels run on autograd's own thread, outside its range's
+    span), and the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        for i in range(n + 1):
+            tr.train_step()
+            if i == n:
+                torch.cuda.synchronize()
+            prof.step()
+    events = traced[0]
+    stage = ("step.", "render.")   # record_function ranges of the port
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and not e.key.startswith(stage)),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC")) / n
+    print(f"[profile] one train step (flat_frac {tr.opts.flat_frac}, mean of "
+          f"{n}): device busy {busy:.3f} ms in kernels, {launches:.0f} kernel "
+          f"launches")
+    spans = {}
+    for e in events:   # a range's host time, and its span on the device
+        if e.key.startswith(stage):
+            host, dev = spans.get(e.key, (0.0, 0.0))
+            if e.device_type == DeviceType.CUDA:
+                dev += e.device_time_total
+            else:
+                host += e.cpu_time_total
+            spans[e.key] = (host, dev)
+    for key in sorted(spans):
+        host, dev = spans[key]
+        print(f"[profile]   {key:<18s} host {host / 1e3 / n:7.3f} ms, device "
+              f"span {dev / 1e3 / n:7.3f} ms")
+    for e in kernels[:12]:
+        print(f"[profile]   {e.self_device_time_total / 1e3 / n:7.3f} ms "
+              f"x{e.count // n:<4d} {e.key[:88]}")
 
 
 if __name__ == "__main__":

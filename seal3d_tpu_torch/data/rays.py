@@ -1,10 +1,13 @@
-"""Ray generation (port of seal3d_tpu/data/rays.py): full-image rays for
-renders. The random train-batch sampler belongs to the training slice.
+"""Ray generation (port of seal3d_tpu/data/rays.py): the uniform train-batch
+sampler `get_rays` and full-image rays for renders. The reference's
+error-map and patch samplers are not on the ported path.
 
 Pose convention: camera-to-world, +z forward (data/provider.py).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,3 +32,16 @@ def get_full_rays(pose: torch.Tensor, intrinsics: torch.Tensor, h: int, w: int):
                               indexing="ij")
     rays_o, rays_d = rays_from_pixels(pose, intrinsics, col, row)
     return {"rays_o": rays_o.reshape(-1, 3), "rays_d": rays_d.reshape(-1, 3)}
+
+
+def get_rays(pose: torch.Tensor, intrinsics: torch.Tensor, h: int, w: int,
+             num_rays: int, generator: Optional[torch.Generator] = None,
+             inds: Optional[torch.Tensor] = None):
+    """`num_rays` uniformly drawn pixels of one view (drawn from `generator`
+    on the pose's device, or given as flat indices `inds` [num_rays]) ->
+    dict(rays_o, rays_d [N, 3], inds [N] flat pixel indices)."""
+    if inds is None:
+        inds = torch.randint(0, h * w, (num_rays,), generator=generator,
+                             device=pose.device)
+    rays_o, rays_d = rays_from_pixels(pose, intrinsics, inds % w, inds // w)
+    return {"rays_o": rays_o, "rays_d": rays_d, "inds": inds}

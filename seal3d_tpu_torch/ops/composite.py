@@ -1,7 +1,7 @@
 """Volume-rendering compositing (port of seal3d_tpu/ops/composite.py).
 
-`composite_dense` serves the synthetic scene's ground-truth renderer;
-`composite_flat` composites the flat, ray-contiguous sample buffer of the
+`composite_dense` serves the synthetic scene's ground-truth renderer and the
+[N, K] train branch of `render_rays`; `composite_flat` composites the flat, ray-contiguous sample buffer of the
 march (see ops/raymarch.MarchedRays).
 
 Optical depth: the reference carries a TwoSum-compensated float32 prefix
@@ -15,14 +15,20 @@ none of the reference's ~2e-3 prefix-rounding error.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
 def composite_dense(sigmas: torch.Tensor, rgbs: torch.Tensor,
-                    deltas: torch.Tensor, ts: torch.Tensor):
-    """Per-ray sample grids: sigmas/deltas/ts [N, K], rgbs [N, K, 3] ->
+                    deltas: torch.Tensor, ts: torch.Tensor,
+                    valid: Optional[torch.Tensor] = None):
+    """Per-ray sample grids: sigmas/deltas/ts [N, K], rgbs [N, K, 3], valid
+    [N, K] bool or None (invalid slots contribute no optical depth) ->
     dict(weights [N, K], weights_sum [N], depth [N], image [N, 3])."""
     sdelta = sigmas * deltas
+    if valid is not None:
+        sdelta = torch.where(valid, sdelta, 0.0)
     cum = torch.cumsum(sdelta, dim=-1)
     trans = torch.exp(-(cum - sdelta))
     alpha = 1.0 - torch.exp(-sdelta)

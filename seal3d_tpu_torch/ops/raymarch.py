@@ -1,15 +1,16 @@
-"""Occupancy-grid ray marching: the two-level eval march (port of the
-two-level path of seal3d_tpu/ops/raymarch.py).
+"""Occupancy-grid ray marching (port of seal3d_tpu/ops/raymarch.py): the
+single-level train march (candidate ladder, `[N, K]` grid and flat packed
+layouts) and the two-level eval march.
 
 The march keeps the reference's static-shape design (fixed candidate ladder,
 occupancy tests as gathers, packing by one sort of unique flat-index keys,
 graceful Bresenham thinning when demand exceeds a budget) so its packed
 buffers match the reference slot for slot. Index tensors are int64 here (the
 reference's int32); the float arithmetic follows the reference expression by
-expression, including the float32 Bresenham divisions, because the selected
-samples depend on their exact rounding. The single-level train march
-(`march_candidates`, `compact_flat_direct`, `march_rays_flat`) belongs to the
-training slice.
+expression, including the jittered start `t0 + perturb * dt_min` and the
+float32 Bresenham divisions, because the selected samples depend on their
+exact rounding. Marching is a selection without gradient: nothing here
+requires grad.
 """
 
 from __future__ import annotations
@@ -152,7 +153,7 @@ class GroupPlan(NamedTuple):
 
 def group_plan(rays_o, rays_d, bitfield, bound: float, cascades: int,
                max_steps: int, k: int, num_candidates: int, group: int = 8,
-               min_near: float = 0.05,
+               perturb: Optional[torch.Tensor] = None, min_near: float = 0.05,
                aabb: Optional[torch.Tensor] = None, coarse_steps: int = 0,
                kg: int = 0, pool: int = 32) -> GroupPlan:
     """Level 1 of the two-level march: AABB clip, coarse tighten, group
@@ -178,7 +179,9 @@ def group_plan(rays_o, rays_d, bitfield, bound: float, cascades: int,
     if coarse_steps > 0:
         nears, fars = coarse_tighten(rays_o, rays_d, bitfield, nears, fars,
                                      cascades, bound, n_steps=coarse_steps)
-    t0 = nears  # the training slice adds the jittered start here
+    t0 = nears
+    if perturb is not None:
+        t0 = t0 + perturb * dt_min
 
     gi = torch.arange(cg, dtype=torch.float32, device=dev)
     tm = t0[:, None] + (gi * g + (g - 1) * 0.5)[None, :] * dt_min
@@ -294,6 +297,7 @@ def pack_groups_expand_fine(plan: GroupPlan, keep: torch.Tensor, col0: int,
 def march_rays_flat_2level(rays_o, rays_d, bitfield, bound: float,
                            cascades: int, max_steps: int, k: int, budget: int,
                            num_candidates: int,
+                           perturb: Optional[torch.Tensor] = None,
                            min_near: float = 0.05,
                            aabb: Optional[torch.Tensor] = None,
                            occ_stride: int = 4, coarse_steps: int = 0,
@@ -305,9 +309,164 @@ def march_rays_flat_2level(rays_o, rays_d, bitfield, bound: float,
     plan = group_plan(rays_o, rays_d, bitfield, bound=bound,
                       cascades=cascades, max_steps=max_steps, k=k,
                       num_candidates=num_candidates, group=group,
-                      min_near=min_near, aabb=aabb,
+                      perturb=perturb, min_near=min_near, aabb=aabb,
                       coarse_steps=coarse_steps, kg=kg, pool=pool)
     budget_g = max(-(-int(round(budget * over)) // (group * 16)) * 16, 16)
     return pack_groups_expand_fine(plan, plan.keep, 0, rays_o, rays_d,
                                    bitfield, bound, cascades, group, budget,
                                    budget_g, occ_stride)
+
+
+# ------------------------------------------------------ single-level march
+
+def candidate_ts(nears: torch.Tensor, fars: torch.Tensor, num_steps: int,
+                 dt_gamma: float, bound: float, max_steps: int,
+                 perturb: Optional[torch.Tensor] = None):
+    """Cone-stepped candidate distances: (ts, dts, valid) [N, num_steps] with
+    dt = clamp(t * dt_gamma, dt_min, dt_max); `perturb` [N] in [0, 1)
+    jitters the start by up to one dt_min. (The reference's span_adaptive
+    ladder is left out of the port: ROADMAP.md, 'Not to port'.)"""
+    dt_min = 2.0 * SQRT3 / max_steps
+    dt_max = 2.0 * SQRT3 * bound / GRID_SIZE
+    t0 = nears
+    if perturb is not None:
+        t0 = t0 + perturb * dt_min
+    if dt_gamma <= 0.0:
+        k = torch.arange(num_steps, dtype=torch.float32, device=nears.device)
+        ts = t0[:, None] + k[None, :] * dt_min
+        dts = torch.full_like(ts, dt_min)
+    else:  # the reference's lax.scan, one step per column
+        t, ts_l, dts_l = t0, [], []
+        for _ in range(num_steps):
+            dt = (t * dt_gamma).clamp(dt_min, dt_max)
+            ts_l.append(t)
+            dts_l.append(dt)
+            t = t + dt
+        ts, dts = torch.stack(ts_l, 1), torch.stack(dts_l, 1)
+    return ts, dts, ts < fars[:, None]
+
+
+def march_candidates(rays_o, rays_d, bitfield, bound: float, cascades: int,
+                     dt_gamma: float, max_steps: int,
+                     num_candidates: Optional[int] = None,
+                     perturb: Optional[torch.Tensor] = None,
+                     min_near: float = 0.05,
+                     aabb: Optional[torch.Tensor] = None,
+                     occ_stride: int = 2, coarse_steps: int = 0):
+    """Occupancy-tested candidate ladder: (ts, dts, valid) [N, C] with
+    validity = in-interval AND occupied AND in-bounds. Occupancy is tested
+    at every occ_stride-th candidate and repeated to its neighbours."""
+    if aabb is None:
+        aabb = torch.tensor([-bound] * 3 + [bound] * 3, dtype=torch.float32,
+                            device=rays_o.device)
+    if num_candidates is None:
+        num_candidates = max_steps
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
+    if coarse_steps > 0:
+        nears, fars = coarse_tighten(rays_o, rays_d, bitfield, nears, fars,
+                                     cascades, bound, n_steps=coarse_steps)
+    ts, dts, valid = candidate_ts(nears, fars, num_candidates, dt_gamma,
+                                  bound, max_steps, perturb)
+    xyz = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
+    if occ_stride > 1 and num_candidates % occ_stride == 0:
+        occ = occupancy_at(xyz[:, ::occ_stride], dts[:, ::occ_stride],
+                           bitfield, cascades, bound)
+        occ = occ.repeat_interleave(occ_stride, dim=1)
+    else:
+        occ = occupancy_at(xyz, dts, bitfield, cascades, bound)
+    return ts, dts, valid & occ & (xyz.abs().amax(-1) <= bound)
+
+
+class MarchedGrid(NamedTuple):
+    """Per-ray fixed-K compacted samples: the [N, K] layout."""
+
+    xyzs: torch.Tensor    # [N, K, 3]
+    dirs: torch.Tensor    # [N, K, 3]
+    deltas: torch.Tensor  # [N, K]
+    ts: torch.Tensor      # [N, K]
+    valid: torch.Tensor   # [N, K] bool
+
+
+def _ray_stride_keep(valid: torch.Tensor, k: int):
+    """Per-ray stride subsample of over-k rays: (keep [N, C], stride [N, 1])
+    keeping every stride-th valid candidate, stride = max(ceil(count/k), 1)."""
+    rank = torch.cumsum(valid.to(torch.int64), dim=1)
+    stride = torch.ceil(rank[:, -1:] / k).to(torch.int64).clamp(min=1)
+    return valid & (((rank - 1) % stride) == 0), stride
+
+
+def compact_topk(ts, dts, valid, rays_o, rays_d, k: int) -> MarchedGrid:
+    """Select <= K kept candidates per ray in ascending t (the reference's
+    top_k over kept-first scores, whose ties break toward the lower index:
+    here the k smallest of the unique keys idx (kept) / idx + C (not kept));
+    deltas scaled by the per-ray stride."""
+    n, c = ts.shape
+    keep, stride = _ray_stride_keep(valid, k)
+    dts = dts * stride.to(dts.dtype)
+    idx = torch.arange(c, dtype=torch.int64, device=ts.device)[None, :]
+    sel = torch.sort(torch.where(keep, idx, idx + c), dim=1).values[:, :k]
+    sel = torch.sort(sel % c, dim=1).values
+    ts_k = torch.gather(ts, 1, sel)
+    xyz = rays_o[:, None, :] + ts_k[..., None] * rays_d[:, None, :]
+    return MarchedGrid(xyzs=xyz, dirs=rays_d[:, None, :].expand(xyz.shape),
+                       deltas=torch.gather(dts, 1, sel), ts=ts_k,
+                       valid=torch.gather(keep, 1, sel))
+
+
+def march_rays_grid(rays_o, rays_d, bitfield, bound: float, cascades: int,
+                    dt_gamma: float, max_steps: int, k: int,
+                    num_candidates: Optional[int] = None,
+                    perturb: Optional[torch.Tensor] = None,
+                    min_near: float = 0.05,
+                    aabb: Optional[torch.Tensor] = None,
+                    occ_stride: int = 2, coarse_steps: int = 0) -> MarchedGrid:
+    """Occupancy march into the per-ray [N, K] layout (compact_topk)."""
+    ts, dts, valid = march_candidates(
+        rays_o, rays_d, bitfield, bound, cascades, dt_gamma, max_steps,
+        num_candidates, perturb=perturb, min_near=min_near, aabb=aabb,
+        occ_stride=occ_stride, coarse_steps=coarse_steps)
+    return compact_topk(ts, dts, valid, rays_o, rays_d, k)
+
+
+def compact_flat_direct(ts, dts, valid, rays_o, rays_d, k: int,
+                        budget: int) -> MarchedRays:
+    """Candidates [N, C] -> flat [budget] buffer in one sort: the per-ray
+    stride subsample of compact_topk, graceful global overflow (Bresenham
+    thinning over the global kept rank, each ray's deltas rescaled by its
+    kept fraction), then the sort-pack of the kept flat indices."""
+    n, c = ts.shape
+    keep, stride = _ray_stride_keep(valid, k)
+    dts = dts * stride.to(dts.dtype)
+    flat_keep = _bresenham_keep(keep.reshape(-1), budget)
+    keep2 = flat_keep.reshape(n, c)
+    counts_all = keep.sum(1)
+    counts = keep2.sum(1)
+    oscale = counts_all.to(torch.float32) / counts.clamp(min=1)
+    sel, valid_f = _pack(flat_keep, budget)
+    ts_f = ts.reshape(-1)[sel]
+    ray_id = sel // c
+    dts_f = dts.reshape(-1)[sel] * oscale[ray_id.clamp(0, n - 1)]
+    rd = rays_d[ray_id]
+    starts = _excl_cumsum(counts)
+    kept = (starts + counts).clamp(max=budget) - starts.clamp(max=budget)
+    return MarchedRays(
+        xyzs=rays_o[ray_id] + ts_f[:, None] * rd, dirs=rd, deltas=dts_f,
+        ts=ts_f, ray_id=ray_id.clamp(0, n - 1), valid=valid_f,
+        offsets=starts.clamp(max=budget), counts=kept.clamp(min=0))
+
+
+def march_rays_flat(rays_o, rays_d, bitfield, bound: float, cascades: int,
+                    dt_gamma: float, max_steps: int, k: int, budget: int,
+                    num_candidates: Optional[int] = None,
+                    perturb: Optional[torch.Tensor] = None,
+                    min_near: float = 0.05,
+                    aabb: Optional[torch.Tensor] = None,
+                    occ_stride: int = 2,
+                    coarse_steps: int = 0) -> MarchedRays:
+    """Occupancy march straight to the flat packed layout (the train fast
+    path; the reference's select='sort', shards=1)."""
+    ts, dts, valid = march_candidates(
+        rays_o, rays_d, bitfield, bound, cascades, dt_gamma, max_steps,
+        num_candidates, perturb=perturb, min_near=min_near, aabb=aabb,
+        occ_stride=occ_stride, coarse_steps=coarse_steps)
+    return compact_flat_direct(ts, dts, valid, rays_o, rays_d, k, budget)

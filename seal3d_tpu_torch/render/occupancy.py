@@ -1,11 +1,11 @@
 """Multi-cascade occupancy grid maintenance (port of
-seal3d_tpu/render/occupancy.py): `occupancy_init`, the full
-`occupancy_update` and `mark_untrained`. The partial update (rotating slice +
-occupied resamples) belongs to the training slice.
+seal3d_tpu/render/occupancy.py): `occupancy_init`, `occupancy_update` (full,
+or partial: a rotating strided slice plus occupied-cell resamples) and
+`mark_untrained`.
 
-Randomness: the reference jitters each queried cell with `jax.random`; here
-the jitter is either passed in (tests hand both packages the same numbers)
-or drawn from an explicit `torch.Generator`.
+Randomness: the reference draws the cell jitter and the occupied-cell
+uniforms with `jax.random`; here they are either passed in (tests hand both
+packages the same numbers) or drawn from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -46,41 +46,86 @@ def _cell_coords(device) -> torch.Tensor:
     return morton3d_invert(codes).to(torch.float32)
 
 
+def cell_world_positions(codes: torch.Tensor, cascade: int, bound: float,
+                         jitter: torch.Tensor) -> torch.Tensor:
+    """Morton codes [M] + jitter [M, 3] in [0, 1) -> world positions inside
+    each cell of cascade c, which covers [-b_c, b_c]^3, b_c = min(2^c,
+    bound)."""
+    coords = morton3d_invert(codes).to(torch.float32)
+    b = min(float(2**cascade), float(bound))
+    return ((coords + jitter) / GRID_SIZE * 2.0 - 1.0) * b
+
+
+def _sample_occupied(u: torch.Tensor, occ_mask: torch.Tensor) -> torch.Tensor:
+    """Cell indices ~ uniform over occupied cells by inverse CDF, from
+    uniforms u [n] in [0, 1)."""
+    cdf = torch.cumsum(occ_mask.to(torch.float32), 0)
+    idx = torch.searchsorted(cdf, u * cdf[-1].clamp(min=1.0), side="left")
+    return idx.clamp(0, occ_mask.shape[0] - 1)
+
+
 def occupancy_update(state: OccupancyState,
                      density_fn: Callable[[torch.Tensor], torch.Tensor],
                      bound: float, density_thresh: float = 0.01,
-                     decay: float = 0.95,
+                     decay: float = 0.95, full: bool = True,
                      jitter: Optional[torch.Tensor] = None,
+                     uniforms: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
+                     partial_cells: int = GRID_CELLS // 8,
+                     occ_cells: int = 2**16,
                      query_chunk: int = 2**17) -> OccupancyState:
-    """One full maintenance step: re-query every cell at a jittered position,
-    EMA-max decay, threshold min(mean_density, density_thresh), repack.
+    """One maintenance step: re-query cells at jittered positions, EMA-max
+    decay, threshold min(mean_density, density_thresh), repack.
 
+    full: every cell of every cascade; else per cascade a rotating strided
+    slice of `partial_cells` cells (phase iter_density % stride, so 8 updates
+    cover the grid) plus `occ_cells` resamples of occupied cells.
     density_fn: [M, 3] world positions -> [M] sigma (density-scaled).
-    jitter: [C, H^3, 3] in [0, 1), or None to draw it from `generator`.
-    The reference's partial update (full=False) belongs to the training
-    slice.
+    jitter: [C, Q, 3] in [0, 1) for the Q queried cells of each cascade
+    (Q = H^3, or partial_cells + occ_cells); uniforms: [C, occ_cells] in
+    [0, 1) for the occupied resamples (partial only). Either None draws it
+    from `generator`.
     """
     grid = state.density_grid
     cascades = grid.shape[0]
     dev = grid.device
-    coords = _cell_coords(dev)
-    new_vals = torch.empty_like(grid)
+
+    def rand(shape, given, cas):
+        return (given[cas] if given is not None else
+                torch.rand(shape, generator=generator, device=dev))
+
+    new_vals = torch.zeros_like(grid)
+    written = torch.zeros_like(grid, dtype=torch.bool)
+    stride = GRID_CELLS // partial_cells
     for cas in range(cascades):
-        jit = (jitter[cas] if jitter is not None else
-               torch.rand(coords.shape, generator=generator, device=dev))
-        b = min(float(2**cas), float(bound))
-        xs = ((coords + jit) / GRID_SIZE * 2.0 - 1.0) * b
-        for i in range(0, GRID_CELLS, query_chunk):
-            new_vals[cas, i:i + query_chunk] = density_fn(xs[i:i + query_chunk])
+        if full:
+            codes = torch.arange(GRID_CELLS, dtype=torch.int64, device=dev)
+        else:
+            uni = (torch.arange(partial_cells, dtype=torch.int64, device=dev)
+                   * stride + state.iter_density % stride)
+            occ = _sample_occupied(rand((occ_cells,), uniforms, cas),
+                                   grid[cas] > 0.0)
+            codes = torch.cat([uni, occ])
+        xs = cell_world_positions(codes, cas, bound,
+                                  rand((codes.shape[0], 3), jitter, cas))
+        vals = torch.cat([density_fn(xs[i:i + query_chunk])
+                          for i in range(0, xs.shape[0], query_chunk)])
+        if full:
+            new_vals[cas] = vals
+            written[cas] = True
+        else:  # duplicate codes keep their largest value (.at[].max)
+            new_vals[cas].scatter_reduce_(0, codes, vals, "amax")
+            written[cas, codes] = True
 
     trained = grid >= 0.0
-    grid = torch.where(trained, torch.maximum(grid * decay, new_vals), grid)
+    decayed = torch.where(written, torch.maximum(grid * decay, new_vals), grid)
+    grid = torch.where(trained, decayed, grid)
     mean_density = grid.clamp(min=0.0).mean()
     thresh = torch.clamp(mean_density, max=density_thresh)
     bitfield = packbits(grid, thresh)
 
     # world AABB of occupied coarsest-cascade cells
+    coords = _cell_coords(dev)
     occ_any = (grid > thresh).any(0)
     b_last = min(float(2 ** (cascades - 1)), float(bound))
     world = (coords / GRID_SIZE * 2.0 - 1.0) * b_last

@@ -1,12 +1,12 @@
-"""Volume renderer, two-level flat branch (port of
-seal3d_tpu/render/renderer.py).
+"""Volume renderer (port of seal3d_tpu/render/renderer.py `render_rays`).
 
-`render_rays` marches a ray batch with the two-level flat march, queries the
-field once on the packed samples and composites them. It is the eval and
-full-image path at the -O operating point. The reference's other branches
-(single-level flat and transmittance-terminated rounds, the [N, K] grid path,
-the legacy flat path, the dense oracle) raise NotImplementedError until their
-slices land.
+`render_rays` marches a ray batch, queries the field once on the samples and
+composites them. Its branches, as in the reference: the packed flat branch
+(flat_frac < 1) with the two-level march (the -O eval and full-image point)
+or the single-level march (the -O train point once the adaptive budget has
+picked a bucket), and the [N, K] grid branch (flat_frac None: the train
+steps before the first budget retune). The transmittance-terminated rounds,
+the legacy flat path and the dense oracle raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,10 +17,13 @@ from functools import cached_property
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
-from seal3d_tpu_torch.ops.composite import composite_flat
+from seal3d_tpu_torch.ops.composite import composite_dense, composite_flat
 from seal3d_tpu_torch.ops.raymarch import (SQRT3, MarchedRays,
-                                           march_rays_flat_2level)
+                                           march_rays_flat,
+                                           march_rays_flat_2level,
+                                           march_rays_grid)
 
 
 @dataclass(frozen=True)
@@ -94,53 +97,96 @@ def flat_budget(n: int, opts: RenderOptions) -> int:
     return max(int(round(n * opts.budget_per_ray * opts.flat_frac / q)) * q, q)
 
 
-def march_eval(rays_o, rays_d, bitfield, opts: RenderOptions,
-               aabb: torch.Tensor) -> MarchedRays:
-    """The packed sample buffer the two-level branch of `render_rays`
-    feeds the field."""
+def march_flat(rays_o, rays_d, bitfield, opts: RenderOptions,
+               aabb: torch.Tensor,
+               jitter: Optional[torch.Tensor] = None) -> MarchedRays:
+    """The packed sample buffer the flat branch of `render_rays` feeds the
+    field: the two-level march where `two_level_ok` (the eval point), else
+    the single-level march (the train point)."""
     k = opts.budget_per_ray
+    budget = flat_budget(rays_o.shape[0], opts)
+    if opts.tl_kernel_ok(k, jitter):
+        raise _not_ported("the ladder kernel K4 (RenderOptions.tl_kernel)",
+                          "Other backends and families")
+    if opts.two_level_ok(k):
+        return march_rays_flat_2level(
+            rays_o, rays_d, bitfield, bound=opts.bound,
+            cascades=opts.cascades, max_steps=opts.max_steps, k=k,
+            budget=budget, num_candidates=opts.num_candidates,
+            perturb=jitter, min_near=opts.min_near, aabb=aabb,
+            occ_stride=opts.occ_stride, coarse_steps=opts.coarse_steps,
+            group=opts.tl_group, over=opts.tl_over, kg=opts.tl_kg,
+            pool=opts.tl_pool)
+    if (opts.group_compact or opts.flat_select != "sort" or opts.span_adaptive
+            or opts.pack_shards > 1):
+        raise NotImplementedError(
+            "group_compact, flat_select='gather', span_adaptive and sharded "
+            "packs are left out of the port (ROADMAP.md, 'Not to port')")
+    return march_rays_flat(
+        rays_o, rays_d, bitfield, bound=opts.bound, cascades=opts.cascades,
+        dt_gamma=opts.dt_gamma, max_steps=opts.max_steps, k=k, budget=budget,
+        num_candidates=opts.num_candidates, perturb=jitter,
+        min_near=opts.min_near, aabb=aabb, occ_stride=opts.occ_stride,
+        coarse_steps=opts.coarse_steps)
+
+
+def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
+                opts: RenderOptions, bg_color=1.0,
+                aabb: Optional[torch.Tensor] = None,
+                jitter: Optional[torch.Tensor] = None):
+    """Occupancy-grid fast path over a ray batch, differentiable in params.
+
+    field: a module with `apply(params, cfg, x, d, valid=)` (models.ngp).
+    bitfield: [C*H^3/8] uint8; rays_o, rays_d: [N, 3] (d unit-norm);
+    jitter: [N] uniforms in [0, 1) that perturb each ray's march start (the
+    reference's `perturb=True`, whose numbers it draws from `key`), or None.
+    flat_frac None (or >= 1) selects the [N, K] grid branch, else the packed
+    flat branch (march_flat).
+    Returns dict(image [N, 3], depth [N], weights_sum [N], num_samples []).
+    """
+    n = rays_o.shape[0]
+    k = opts.budget_per_ray
+    if opts.bg_radius > 0:
+        raise _not_ported("the background net", "Other backends and families")
     if opts.compaction != "topk":
         raise NotImplementedError("the legacy 'flat' compaction is left out of "
                                   "the port (ROADMAP.md, 'Not to port')")
     if opts.term_rounds > 1:
         raise _not_ported("transmittance-terminated rounds",
                           "Other backends and families")
-    if opts.flat_frac is None or opts.flat_frac >= 1.0:
-        raise _not_ported("the [N, K] grid render path", "1l eval")
-    if opts.tl_kernel_ok(k, None):
-        raise _not_ported("the ladder kernel K4 (RenderOptions.tl_kernel)",
-                          "Other backends and families")
-    if not opts.two_level_ok(k):
-        raise _not_ported("the single-level flat march", "1l eval")
-    return march_rays_flat_2level(
-        rays_o, rays_d, bitfield, bound=opts.bound, cascades=opts.cascades,
-        max_steps=opts.max_steps, k=k, budget=flat_budget(rays_o.shape[0], opts),
-        num_candidates=opts.num_candidates, min_near=opts.min_near, aabb=aabb,
-        occ_stride=opts.occ_stride, coarse_steps=opts.coarse_steps,
-        group=opts.tl_group, over=opts.tl_over, kg=opts.tl_kg,
-        pool=opts.tl_pool)
-
-
-def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
-                opts: RenderOptions, bg_color=1.0,
-                aabb: Optional[torch.Tensor] = None):
-    """Occupancy-grid fast path over a ray batch (two-level flat branch,
-    unjittered: the train-time jitter comes with the training slice).
-
-    field: a module with `apply(params, cfg, x, d, valid=)` (models.ngp).
-    bitfield: [C*H^3/8] uint8; rays_o, rays_d: [N, 3] (d unit-norm).
-    Returns dict(image [N, 3], depth [N], weights_sum [N], num_samples []).
-    """
-    n = rays_o.shape[0]
-    if opts.bg_radius > 0:
-        raise _not_ported("the background net", "Other backends and families")
     if aabb is None:
         aabb = torch.tensor(opts.aabb, dtype=torch.float32, device=rays_o.device)
-    mf = march_eval(rays_o, rays_d, bitfield, opts, aabb)
-    sigma, rgb = field.apply(params, cfg, mf.xyzs, mf.dirs, valid=mf.valid)
-    sigma = torch.where(mf.valid, sigma * opts.density_scale, 0.0)
-    out = composite_flat(sigma, rgb, mf.deltas, mf.ts, mf.ray_id, mf.offsets,
-                         mf.valid, n, seg_mode=opts.composite_seg)
+    if opts.flat_frac is not None and opts.flat_frac < 1.0:
+        with record_function("render.march"):
+            mf = march_flat(rays_o, rays_d, bitfield, opts, aabb, jitter)
+        with record_function("render.field"):
+            sigma, rgb = field.apply(params, cfg, mf.xyzs, mf.dirs,
+                                     valid=mf.valid)
+        with record_function("render.composite"):
+            sigma = torch.where(mf.valid, sigma * opts.density_scale, 0.0)
+            out = composite_flat(sigma, rgb, mf.deltas, mf.ts, mf.ray_id,
+                                 mf.offsets, mf.valid, n,
+                                 seg_mode=opts.composite_seg)
+        num_samples = mf.valid.sum()
+    else:
+        with record_function("render.march"):
+            m = march_rays_grid(
+                rays_o, rays_d, bitfield, bound=opts.bound,
+                cascades=opts.cascades, dt_gamma=opts.dt_gamma,
+                max_steps=opts.max_steps, k=k,
+                num_candidates=opts.num_candidates, perturb=jitter,
+                min_near=opts.min_near, aabb=aabb, occ_stride=opts.occ_stride,
+                coarse_steps=opts.coarse_steps)
+        with record_function("render.field"):
+            # the reference queries every grid slot (no valid mask) here
+            sigma, rgb = field.apply(params, cfg, m.xyzs.reshape(-1, 3),
+                                     m.dirs.reshape(-1, 3))
+        with record_function("render.composite"):
+            sigma = torch.where(m.valid,
+                                sigma.reshape(n, k) * opts.density_scale, 0.0)
+            out = composite_dense(sigma, rgb.reshape(n, k, 3), m.deltas,
+                                  m.ts, m.valid)
+        num_samples = m.valid.sum()
     image = out["image"] + (1.0 - out["weights_sum"])[:, None] * bg_color
     return {"image": image, "depth": out["depth"],
-            "weights_sum": out["weights_sum"], "num_samples": mf.valid.sum()}
+            "weights_sum": out["weights_sum"], "num_samples": num_samples}

@@ -3,16 +3,20 @@ seal3d_tpu/train/checkpoint.py).
 
 The reference writes one array per pytree leaf, keyed by its path joined
 with '/' (`params/encoder`, `params/sigma_net/0/w`, `ema_params/...`,
-`occ/bitfield`, `step`, and `opt_state/...` in full checkpoints). The port
-reads and writes the same keys with numpy alone, so a checkpoint moves
-between the two packages in either direction; keys the port has no state for
-yet (`opt_state/...`) are ignored on load.
+`occ/bitfield`, `step`, and the optax state `opt_state/0/count`,
+`opt_state/0/mu/...`, `opt_state/0/nu/...`, `opt_state/1/count` in full
+checkpoints). The port's `TrainState` and optimizer state (train/optim.py)
+have the same tree shape, so its keys are the reference's: a checkpoint
+moves between the two packages in either direction, through the `.npz`
+file (`save_state` / `load_state`) or in memory as a dict of numpy arrays
+keyed the same way (`state_to_arrays` / `state_from_arrays`).
 """
 
 from __future__ import annotations
 
+import glob
 import os
-from typing import Any
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -56,6 +60,13 @@ def map_tree(tree: Any, fn, prefix: str = ""):
     raise TypeError(f"unsupported checkpoint leaf {type(tree)} at {prefix!r}")
 
 
+def map_trees(fn, *trees):
+    """The first tree with every tensor leaf replaced by fn(leaf, *the
+    leaves at the same path of the other trees)."""
+    others = [dict(flatten_tree(t)) for t in trees[1:]]
+    return map_tree(trees[0], lambda k, v: fn(v, *(o[k] for o in others)))
+
+
 def params_from_jax(tree: Any, device=None) -> Any:
     """A JAX params tree (dicts/lists of arrays, e.g. `np.asarray`-mapped
     `ngp.init(...)`) -> the same tree of torch tensors on `device`."""
@@ -66,39 +77,56 @@ def params_from_jax(tree: Any, device=None) -> Any:
     return torch.from_numpy(np.array(tree)).to(device)
 
 
-def save_state(path: str, state: Any):
-    """Write every tensor of `state` under its '/'-joined path."""
-    arrays = {k: v.detach().cpu().numpy() for k, v in flatten_tree(state)}
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez_compressed(path, **arrays)
+def state_to_arrays(state: Any, full: bool = True) -> dict:
+    """{'/'-joined path: numpy array} of every tensor of `state`; full=False
+    drops the optimizer state (the reference's light checkpoint)."""
+    if not full:
+        state = state._replace(opt_state=None)
+    return {k: v.detach().cpu().numpy() for k, v in flatten_tree(state)}
 
 
-def load_state(path: str, template: Any) -> Any:
-    """Load into the structure (and devices) of `template`; keys missing from
-    the file keep the template's value, with a warning (non-strict, like the
-    reference)."""
+def state_from_arrays(arrays: Mapping[str, np.ndarray], template: Any) -> Any:
+    """Fill the structure (devices, dtypes) of `template` from arrays keyed
+    by path; keys missing from `arrays` keep the template's value, with a
+    warning (non-strict, like the reference)."""
     missing = []
-    with np.load(path) as data:
-        def pick(key, leaf):
-            if key not in data.files:
-                missing.append(key)
-                return leaf
-            arr = data[key]
-            if arr.shape != tuple(leaf.shape):
-                raise ValueError(f"checkpoint {key}: shape {arr.shape} != "
-                                 f"{tuple(leaf.shape)}")
-            return torch.from_numpy(arr).to(device=leaf.device,
-                                            dtype=leaf.dtype)
 
-        out = map_tree(template, pick)
+    def pick(key, leaf):
+        if key not in arrays:
+            missing.append(key)
+            return leaf
+        arr = np.asarray(arrays[key])
+        if arr.shape != tuple(leaf.shape):
+            raise ValueError(f"checkpoint {key}: shape {arr.shape} != "
+                             f"{tuple(leaf.shape)}")
+        return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
+
+    out = map_tree(template, pick)
     if missing:
         print(f"[checkpoint] missing keys kept from template: {missing[:5]}"
               f"{'...' if len(missing) > 5 else ''}")
     return out
 
 
-def latest_checkpoint(directory: str, name: str):
-    import glob
+def save_state(path: str, state: Any, full: bool = True):
+    """Write every tensor of `state` under its '/'-joined path."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **state_to_arrays(state, full))
 
+
+def load_state(path: str, template: Any) -> Any:
+    """Load a `.npz` into the structure (and devices) of `template`."""
+    with np.load(path) as data:
+        return state_from_arrays({k: data[k] for k in data.files}, template)
+
+
+def prune_checkpoints(directory: str, name: str, keep: int = 2):
+    """Delete all but the newest `keep` step checkpoints of `name`."""
+    files = sorted(glob.glob(os.path.join(directory, f"{name}_step*.npz")))
+    for f in files[:-keep]:
+        os.remove(f)
+
+
+def latest_checkpoint(directory: str, name: str):
     files = sorted(glob.glob(os.path.join(directory, f"{name}_step*.npz")))
     return files[-1] if files else None

@@ -1,33 +1,44 @@
-"""Trainer state and full-image rendering (port of the render half of
+"""Trainer: train state, the train loop and full-image rendering (port of
 seal3d_tpu/train/trainer.py).
 
-The Trainer holds a `TrainState` (params, EMA params, occupancy, step) and
-offers what the render ("serve") path needs: `init_state` (random init,
-occupancy init, `mark_untrained`), the full grid update, checkpoint load and
-save, and `render_image` with Morton-ordered chunks, the closed-form demand
-probe, per-chunk flat_frac buckets and zero-demand chunk skipping. PyTorch
-runs eagerly, so nothing here is jitted; the per-chunk buckets only size the
-packed buffers. The train step, Adam and EMA belong to the training slice.
+The Trainer holds a `TrainState` (params, optimizer state, EMA params,
+occupancy, step). `train_step` samples a ray batch, renders it, takes the
+MSE loss and its gradient, and applies Adam (train/optim.py), the EMA and
+the `mean_count` EMA; `train` runs steps with a grid update every 16 (the
+first 16 full, then partial) and the adaptive budget's retunes;
+`render_image` renders with Morton-ordered chunks, the closed-form demand
+probe, per-chunk flat_frac buckets and zero-demand chunk skipping;
+`evaluate` scores a split and keeps the best checkpoint.
+
+PyTorch runs eagerly, so nothing is jitted: the reference's per-bucket jit
+caches and blocked (scanned) steps have no counterpart, and the per-chunk
+buckets only size the packed buffers. The step's random numbers (image,
+pixels, background, march jitter) are a `StepRandom`, drawn from the
+trainer's device generator or handed in by a test.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
-from seal3d_tpu_torch.data.rays import get_full_rays
+from seal3d_tpu_torch.data.rays import get_full_rays, get_rays
 from seal3d_tpu_torch.ops.raymarch import group_plan, occupancy_at
 from seal3d_tpu_torch.render.occupancy import (OccupancyState, mark_untrained,
                                                occupancy_init,
                                                occupancy_update)
 from seal3d_tpu_torch.render.renderer import RenderOptions, render_rays
 from seal3d_tpu_torch.train import checkpoint as ckpt_io
+from seal3d_tpu_torch.train.metrics import PerceptualMeter, PSNRMeter
+from seal3d_tpu_torch.train.optim import Optimizer, apply_updates
 
 
 @dataclass
@@ -69,34 +80,95 @@ class TrainConfig:
     workspace: Optional[str] = None
 
 
+# train steps before Trainer.train's timing window opens (first grid
+# updates, allocator warm-up), as the reference's bench warms up 48 steps
+TIMING_WARMUP = 48
+
+
 class TrainState(NamedTuple):
-    """Checkpointed state; field names give the reference's `.npz` keys."""
+    """Checkpointed state; field names and order give the reference's
+    `.npz` keys (its `error_map` field is not on the ported path)."""
 
     params: Any
+    opt_state: Any
     ema_params: Any
     occ: OccupancyState
     step: torch.Tensor
 
 
+class StepRandom(NamedTuple):
+    """The random numbers of one train step; the reference draws them from
+    `jax.random.split(key, 4)` (image, pixels, background, jitter)."""
+
+    img_idx: torch.Tensor         # [] int64 training view
+    inds: torch.Tensor            # [N] int64 flat pixel indices
+    bg: Optional[torch.Tensor]    # [N, 3] random background, None = white
+    jitter: torch.Tensor          # [N] march-start jitter in [0, 1)
+
+
+def _srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
+    x = x.clamp(0.0, 1.0)
+    return torch.where(x < 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+
+
+class _Clock:
+    """Marks on the device's timeline: CUDA events on a card (read with no
+    host sync until `seconds`), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def mark(self):
+        if not self.cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def seconds(self, a, b) -> float:
+        if not self.cuda:
+            return b - a
+        b.synchronize()
+        return a.elapsed_time(b) / 1e3
+
+
 class Trainer:
-    """Owns the state of one field and renders it."""
+    """Owns the state of one field: trains, evaluates and renders it."""
 
     def __init__(self, field_mod, field_cfg, opts: RenderOptions,
-                 cfg: TrainConfig, dataset=None, seed: int = 0, device=None):
+                 cfg: TrainConfig, dataset=None, seed: int = 0, device=None,
+                 name: str = "ngp"):
+        if cfg.error_map or cfg.rand_pose >= 0:
+            raise NotImplementedError(
+                "error-map ray sampling and CLIP-guided random poses are not "
+                "ported yet: ROADMAP.md Queue 1, 'Train step' (what stays)")
+        if cfg.lr_net_scale != 1.0:
+            raise NotImplementedError(
+                "a separate MLP learning rate (the D-NeRF family's) is not "
+                "ported yet: ROADMAP.md Queue 1, 'Other backends and families'")
         self.field = field_mod
         self.fcfg = field_cfg
         self.opts = opts
         self.cfg = cfg
+        self.name = name
         self.device = torch.device(device if device is not None else "cpu")
         # params are drawn on the CPU (same numbers on every device); the
-        # occupancy jitter on the device itself
+        # step and occupancy randomness on the device itself
         self.init_generator = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.optimizer = Optimizer(cfg.lr, cfg.max_steps)
         self.state: Optional[TrainState] = None
         self.dataset = None
         # one dict per render_image call (seconds, chunks, buckets, samples,
         # non-finite output values)
         self.render_stats = []
+        # logged train steps {"step", "loss"} and evaluations {"step", "psnr",
+        # "lpips_proxy"}; train_stats: the last train() call's timings
+        self.history, self.eval_history, self.train_stats = [], [], {}
+        self._logfile = None
+        if cfg.workspace:
+            os.makedirs(cfg.workspace, exist_ok=True)
+            self._logfile = os.path.join(cfg.workspace, f"log_{name}.txt")
         if dataset is not None:
             self.attach_dataset(dataset)
 
@@ -121,11 +193,13 @@ class Trainer:
 
     def attach_dataset(self, dataset):
         self.dataset = dataset
+        dev = self.device
         self._poses = torch.as_tensor(dataset.poses, dtype=torch.float32,
-                                      device=self.device)
+                                      device=dev)
         self._intrinsics = torch.as_tensor(dataset.intrinsics,
-                                           dtype=torch.float32,
-                                           device=self.device)
+                                           dtype=torch.float32, device=dev)
+        self._images = (None if dataset.images is None else
+                        torch.as_tensor(dataset.images, device=dev))
 
     def init_state(self) -> TrainState:
         params = self.field.init(self.fcfg, generator=self.init_generator)
@@ -135,16 +209,100 @@ class Trainer:
         if self.dataset is not None:
             occ = mark_untrained(occ, self._poses, self._intrinsics,
                                  self.opts.bound)
-        self.state = TrainState(params=params, ema_params=ema, occ=occ,
+        self.state = TrainState(params=params,
+                                opt_state=self.optimizer.init(params),
+                                ema_params=ema, occ=occ,
                                 step=torch.zeros((), dtype=torch.int32,
                                                  device=self.device))
         return self.state
 
+    # ------------------------------------------------------------ train step
+
+    def draw_step_random(self) -> StepRandom:
+        """One step's random numbers from the trainer's device generator."""
+        n, gen, dev = self.cfg.num_rays, self.generator, self.device
+        ds = self.dataset
+        img_idx = torch.randint(0, len(ds), (), generator=gen, device=dev)
+        inds = torch.randint(0, ds.h * ds.w, (n,), generator=gen, device=dev)
+        bg = None
+        if self.cfg.random_bg and self._images.shape[-1] == 4:
+            bg = torch.rand((n, 3), generator=gen, device=dev)
+        jitter = torch.rand((n,), generator=gen, device=dev)
+        return StepRandom(img_idx=img_idx, inds=inds, bg=bg, jitter=jitter)
+
+    def sample_batch(self, rand: StepRandom) -> dict:
+        """Rays, ground truth and background of one step's pixels."""
+        h, w, n = self.dataset.h, self.dataset.w, rand.inds.shape[0]
+        rays = get_rays(self._poses[rand.img_idx], self._intrinsics, h, w, n,
+                        inds=rand.inds)
+        img = self._images[rand.img_idx].reshape(h * w, -1)
+        gt = img[rand.inds].to(torch.float32) / 255.0
+        if self.cfg.color_space == "linear":
+            gt = torch.cat([_srgb_to_linear(gt[:, :3]), gt[:, 3:]], -1)
+        bg = rand.bg
+        if bg is None:  # RGB ground truth keeps a white background
+            bg = torch.ones((n, 3), dtype=torch.float32, device=gt.device)
+        if gt.shape[-1] == 4:
+            gt = gt[:, :3] * gt[:, 3:] + bg * (1.0 - gt[:, 3:])
+        return {"rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
+                "gt": gt, "bg": bg}
+
+    def loss_fn(self, params, occ: OccupancyState, batch: dict,
+                jitter: Optional[torch.Tensor]):
+        """(loss [], render dict) of one batch: the mean of the per-ray MSE
+        over RGB. (The reference's depth term serves the Seal datasets'
+        teacher depths: ROADMAP.md Queue 1, 'Seal editing'.)"""
+        out = render_rays(params, self.field, self.fcfg, occ.bitfield,
+                          batch["rays_o"], batch["rays_d"], self.opts,
+                          bg_color=batch["bg"],
+                          aabb=self._march_aabb(occ.occ_aabb), jitter=jitter)
+        return ((out["image"] - batch["gt"]) ** 2).mean(-1).mean(), out
+
+    def loss_and_grads(self, params, occ: OccupancyState, batch: dict,
+                       jitter: Optional[torch.Tensor]):
+        """(loss, gradient tree shaped like params, render dict)."""
+        flat = ckpt_io.flatten_tree(params)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in flat}
+        with record_function("step.forward"):
+            loss, out = self.loss_fn(
+                ckpt_io.map_tree(params, lambda k, _: leaves[k]), occ, batch,
+                jitter)
+        with record_function("step.backward"):
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        return loss.detach(), ckpt_io.map_tree(params, lambda k, _: grads[k]), out
+
+    def train_step(self, rand: Optional[StepRandom] = None) -> dict:
+        """One step: batch, loss, gradient, Adam, EMA, mean_count EMA.
+        Returns device tensors {"loss", "num_samples"} (no host sync). Its
+        stages are `step.*` ranges in a torch.profiler trace."""
+        st = self.state
+        with record_function("step.batch"):
+            rand = rand if rand is not None else self.draw_step_random()
+            batch = self.sample_batch(rand)
+        loss, grads, out = self.loss_and_grads(st.params, st.occ, batch,
+                                               rand.jitter)
+        with torch.no_grad(), record_function("step.update"):
+            updates, opt_state = self.optimizer.update(grads, st.opt_state)
+            params = apply_updates(st.params, updates)
+            d = self.cfg.ema_decay
+            ema = ckpt_io.map_trees(lambda e, p: e * d + p * (1.0 - d),
+                                    st.ema_params, params)
+            ns = out["num_samples"].to(torch.float32)
+            mc = st.occ.mean_count
+            occ = st.occ._replace(
+                mean_count=torch.where(mc < 0, ns, mc * 0.9 + ns * 0.1))
+        self.state = TrainState(params=params, opt_state=opt_state,
+                                ema_params=ema, occ=occ, step=st.step + 1)
+        return {"loss": loss, "num_samples": out["num_samples"]}
+
+    # ------------------------------------------------------------ grid, loop
+
     @torch.no_grad()
-    def update_grid(self, jitter: Optional[torch.Tensor] = None
-                    ) -> OccupancyState:
-        """One full occupancy refresh through the field's density (the
-        current params, as in the reference's train loop)."""
+    def update_grid(self, full: bool = True) -> OccupancyState:
+        """One occupancy refresh (full or partial) through the field's
+        density at the current params, as in the reference's train loop;
+        its random numbers come from the trainer's generator."""
         params, fcfg, scale = self.state.params, self.fcfg, self.opts.density_scale
 
         def density_fn(x):
@@ -152,9 +310,81 @@ class Trainer:
 
         occ = occupancy_update(self.state.occ, density_fn, self.opts.bound,
                                density_thresh=self.cfg.density_thresh,
-                               jitter=jitter, generator=self.generator)
+                               full=full, generator=self.generator)
         self.state = self.state._replace(occ=occ)
         return occ
+
+    def train(self, steps: Optional[int] = None,
+              log_every: int = 500) -> dict:
+        """Run `steps` train steps (default cfg.max_steps) with a grid update
+        every update_grid_interval steps. The host reads the device only at
+        loop entry, at logged steps and at each adaptive-budget retune.
+        Fills `train_stats`: seconds of each grid update, and the wall time
+        of the steps after the first TIMING_WARMUP (grid updates included).
+        Returns the last logged {"loss": float}."""
+        if self.state is None:
+            self.init_state()
+        cfg = self.cfg
+        steps = steps if steps is not None else cfg.max_steps
+        clock = _Clock(self.device)
+        step_i = int(self.state.step)          # the one sync at loop entry
+        iter_density = int(self.state.occ.iter_density)
+        grid_marks, w0, last = [], None, {}
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            if step_i % cfg.update_grid_interval == 0:
+                full = iter_density < cfg.full_grid_updates
+                a = clock.mark()
+                self.update_grid(full=full)
+                grid_marks.append((full, a, clock.mark()))
+                iter_density += 1
+                self._post_grid_update()
+                # from scratch, retuning waits out the full-update phase
+                if cfg.adaptive_budget and (cfg.retune_warm or not full):
+                    self._retune_budget()
+            if i == TIMING_WARMUP + 1:
+                w0 = clock.mark()
+            metrics = self.train_step()
+            step_i += 1
+            if (i - 1) % log_every == 0 or i == steps:
+                last = {"loss": float(metrics["loss"])}
+                self.history.append({"step": step_i, **last})
+                self._log(f"[train] step={step_i} loss={last['loss']:.5f} "
+                          f"({i / (time.perf_counter() - t0):.1f} it/s)")
+        end = clock.mark()
+        self.train_stats = {
+            "steps": steps,
+            "grid_updates": [(full, clock.seconds(a, b))
+                             for full, a, b in grid_marks],
+            "window_steps": steps - TIMING_WARMUP if w0 is not None else 0,
+            "window_s": clock.seconds(w0, end) if w0 is not None else 0.0,
+        }
+        return last
+
+    def _post_grid_update(self):
+        """Hook after each occupancy refresh (Seal re-applies its bitfield
+        hack here)."""
+
+    def _retune_budget(self):
+        """Pick the flat_frac bucket matching the measured valid-sample
+        occupancy (x1.15 headroom); None (the [N, K] grid branch) at 1.0."""
+        mc = float(self.state.occ.mean_count)
+        if mc <= 0 or self.opts.compaction != "topk":
+            return
+        cap = self.cfg.num_rays * self.opts.budget_per_ray
+        frac = min(mc * 1.15 / cap, 1.0)
+        bucket = next((b for b in self.cfg.budget_buckets if b >= frac), 1.0)
+        target = None if bucket >= 1.0 else bucket
+        if target != self.opts.flat_frac:
+            self.opts = dataclasses.replace(self.opts, flat_frac=target)
+            self._log(f"[budget] flat_frac -> {target} "
+                      f"(mean_count={mc:.0f}/{cap})")
+
+    def _log(self, msg: str):
+        print(msg)
+        if self._logfile:
+            with open(self._logfile, "a") as f:
+                f.write(msg + "\n")
 
     def _march_aabb(self, occ_aabb: torch.Tensor) -> torch.Tensor:
         """Occupied-cell AABB intersected with the scene box."""
@@ -165,8 +395,21 @@ class Trainer:
 
     # ---------------------------------------------------------- checkpoints
 
-    def save_checkpoint(self, path: str) -> str:
-        ckpt_io.save_state(path, self.state)
+    def save_checkpoint(self, path: Optional[str] = None,
+                        full: bool = True) -> str:
+        """Write the state (full: with the optimizer state) to `path`, by
+        default `<workspace>/checkpoints/<name>_step<step:07d>.npz`, and
+        keep the newest cfg.max_keep_ckpt step checkpoints."""
+        ws = self.cfg.workspace
+        if path is None:
+            if not ws:
+                raise ValueError("save_checkpoint needs a path or a workspace")
+            path = os.path.join(ws, "checkpoints",
+                                f"{self.name}_step{int(self.state.step):07d}.npz")
+        ckpt_io.save_state(path, self.state, full=full)
+        if ws:
+            ckpt_io.prune_checkpoints(os.path.join(ws, "checkpoints"),
+                                      self.name, keep=self.cfg.max_keep_ckpt)
         return path
 
     def load_checkpoint(self, path: str) -> TrainState:
@@ -335,3 +578,30 @@ class Trainer:
             "nonfinite": nonfinite,
         })
         return image, depth
+
+    def evaluate(self, dataset=None, max_views: Optional[int] = None,
+                 bg_color: float = 1.0) -> float:
+        """Mean PSNR of the EMA params' renders over a dataset's views; the
+        best result so far is saved as `<workspace>/checkpoints/
+        <name>_best.npz` (without the optimizer state)."""
+        ds = dataset or self.dataset
+        meter, pmeter = PSNRMeter(), PerceptualMeter()
+        n = len(ds) if max_views is None else min(max_views, len(ds))
+        for vi in range(n):
+            img, _ = self.render_image(ds.poses[vi], ds.h, ds.w,
+                                       bg_color=bg_color)
+            img = img.cpu().numpy()
+            gt = np.asarray(ds.images[vi], np.float32) / 255.0
+            if gt.shape[-1] == 4:
+                gt = gt[..., :3] * gt[..., 3:] + bg_color * (1 - gt[..., 3:])
+            meter.update(img, gt)
+            pmeter.update(img, gt)
+        result = meter.measure()
+        self.eval_history.append({"step": int(self.state.step), "psnr": result,
+                                  pmeter.kind: pmeter.measure()})
+        if self.cfg.workspace and result > getattr(self, "_best_psnr", -1.0):
+            self._best_psnr = result
+            ckpt_io.save_state(os.path.join(self.cfg.workspace, "checkpoints",
+                                            f"{self.name}_best.npz"),
+                               self.state, full=False)
+        return result

@@ -79,10 +79,13 @@ def test_apply_matches_jax_halo_wrap():
 
 
 def test_jax_npz_checkpoint_loads_bit_for_bit(tmp_path):
-    """A JAX save_state .npz (full: with optimizer state) loads into the
-    port's state with numpy alone, every tensor bit-equal; and the port's
-    save_state writes the same keys back."""
+    """A JAX save_state .npz (full: with the trainer's optax state) loads
+    into the port's state with numpy alone, every tensor bit-equal and no
+    key missing on either side; and the port's save_state writes the same
+    keys back."""
     import optax
+
+    from seal3d_tpu_torch.train.optim import Optimizer
 
     jcfg, tcfg, jp, _, _, _ = _setup(seed=3, grid_backend="halo",
                                      gridtype="wrap")
@@ -91,20 +94,23 @@ def test_jax_npz_checkpoint_loads_bit_for_bit(tmp_path):
                            jnp.uint8),
                        mean_density=jnp.float32(0.25))
     ema = jax.tree.map(lambda a: a * 0.5, jp)
-    st = JTrainState(params=jp, opt_state=optax.adam(1e-2).init(jp),
+    chain = optax.chain(optax.scale_by_adam(b1=0.9, b2=0.99, eps=1e-15),
+                        optax.scale_by_schedule(lambda s: -1e-2))
+    st = JTrainState(params=jp, opt_state=chain.init(jp),
                      ema_params=ema, occ=occ, step=jnp.int32(77))
     path = str(tmp_path / "ngp_step0000077.npz")
     jckpt.save_state(path, st, full=True)
 
+    params = tngp.init(tcfg, generator=torch.Generator().manual_seed(1))
     template = TTrainState(
-        params=tngp.init(tcfg, generator=torch.Generator().manual_seed(1)),
+        params=params, opt_state=Optimizer(1e-2, 100).init(params),
         ema_params=tngp.init(tcfg, generator=torch.Generator().manual_seed(2)),
         occ=t_occ_init(1), step=torch.zeros((), dtype=torch.int32))
     loaded = tckpt.load_state(path, template)
     tdtypes = {k: v.dtype for k, v in tckpt.flatten_tree(template)}
     with np.load(path) as data:
         flat = tckpt.flatten_tree(loaded)
-        assert {k for k, _ in flat} <= set(data.files)
+        assert {k for k, _ in flat} == set(data.files)
         for k, v in flat:
             assert v.dtype == tdtypes[k]
             assert v.numpy().dtype == data[k].dtype
