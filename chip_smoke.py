@@ -34,6 +34,24 @@ Phases, each of which raises (exit code != 0) when it fails:
    PSNR is >= 25 dB. Prints ms per step and train rays/s over the steps
    after the first 48, the seconds of the full and partial grid updates, and
    a torch.profiler breakdown of three more train steps.
+8. the hash-encode kernels (hash_encode_fwd, hash_encode_bwd: K3, and K2 as
+   the backward's scatter) against their plain PyTorch versions at full NGP
+   width (L=16) in both level layouts, 'bucket' at T=2^19 (native levels)
+   and 'pallas' at T=2^15 (levels padded to T): the forward at M=2^20 random
+   points, F=4 and F=2, max abs diff <= 1e-5; the backward at M=196,608 and
+   M=2^20, F=4 and F=2, within BWD_RTOL of its largest entry; both times
+   from CUDA events. Also times the per-call stacking copy of the two
+   tables and the backward over the dense coarse levels alone;
+9. the bucket train path through the CLI (phase 7's command with
+   `--grid_backend bucket`: T=2^19, 16 levels, F=2 per grid): phase 7's
+   checks with the hash-encode launch counts (K1 launches 0), then the
+   trained params through `export_torch_ngp` / `import_torch_ngp` into a
+   fresh params tree: every leaf bit-identical;
+10. the pallas train path (`--grid_backend pallas`: T=2^15, levels padded):
+   the same checks, the `.pth` round trip going through
+   `convert_table_layout` (padding rows come back zero): the imported
+   tables encode 2^20 random points bit-identically to the trained ones,
+   and the MLP leaves are bit-identical.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without a CUDA device
 the script exits non-zero before printing any result.
@@ -79,19 +97,30 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def compare(kernel, plain):
+    """(max abs diff, max |plain|, kernel ms, plain ms) of two no-argument
+    callables; timed in turns plain, kernel, kernel, plain so clock drift
+    hits both alike."""
+    with torch.no_grad():
+        ref = plain()
+        err = float((kernel() - ref).abs().max())
+        scale = float(ref.abs().max())
+        del ref
+        p1 = time_ms(plain, 3)
+        k1 = time_ms(kernel)
+        k2 = time_ms(kernel)
+        p2 = time_ms(plain, 3)
+    return err, scale, (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def kernel_vs_plain(table, x, valid, cfg):
-    """(max abs diff, kernel ms, plain ms); timed in turns plain, kernel,
-    kernel, plain so clock drift hits both alike."""
+    """K1 forward: (max abs diff, kernel ms, plain ms)."""
     from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_plain
 
-    with torch.no_grad():
-        err = float((halo_encode(table, x, valid, cfg)
-                     - halo_encode_plain(table, x, valid, cfg)).abs().max())
-        p1 = time_ms(lambda: halo_encode_plain(table, x, valid, cfg), 3)
-        k1 = time_ms(lambda: halo_encode(table, x, valid, cfg))
-        k2 = time_ms(lambda: halo_encode(table, x, valid, cfg))
-        p2 = time_ms(lambda: halo_encode_plain(table, x, valid, cfg), 3)
-    return err, (k1 + k2) / 2, (p1 + p2) / 2
+    err, _, ms, plain_ms = compare(
+        lambda: halo_encode(table, x, valid, cfg),
+        lambda: halo_encode_plain(table, x, valid, cfg))
+    return err, ms, plain_ms
 
 
 def main(argv=None):
@@ -126,13 +155,22 @@ def main(argv=None):
         ws = args.workspace or tmp
         kernels = run_phases(dev, ws)
         bwd_err, bwd_ms, bwd_plain_ms = k1_bwd_phase(dev)
-        fwd_launches, bwd_launches = train_phase(os.path.join(ws, "train"))
+        _, fwd_launches, bwd_launches = train_phase(os.path.join(ws, "train"))
+        hash_rows = hash_kernels_phase(dev)
+        for backend in ("bucket", "pallas"):
+            tr, fwd, bwd = train_phase(os.path.join(ws, f"train_{backend}"),
+                                       backend)
+            pth_round_trip(tr, os.path.join(ws, f"train_{backend}"))
+            hash_rows[0]["launches"] += fwd
+            hash_rows[1]["launches"] += bwd
+            del tr
     kernels[0]["launches"] += fwd_launches
     kernels.append({"name": "halo_encode_bwd", "route": "cuda",
                     "source": "seal3d_tpu_torch/csrc/halo_encode.cu",
                     "replaces": "seal3d_tpu/ops/pallas/halo_encode.py:429",
                     "launches": bwd_launches, "max_abs_err": bwd_err,
                     "ms": bwd_ms, "plain_ms": bwd_plain_ms})
+    kernels.extend(hash_rows)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -310,23 +348,19 @@ def k1_bwd_phase(dev):
         for f in (4, 2):
             g = torch.from_numpy(rng.uniform(-1, 1, (m, 16 * f))
                                  .astype(np.float32)).to(dev)
-            ref = halo_encode_bwd_plain(g, x, valid, cfg, n)
-            out = halo_encode_bwd(g, x, valid, cfg, n)
-            scale = float(ref.abs().max())
-            err = float((out - ref).abs().max())
+            err, scale, ms, plain_ms = compare(
+                lambda: halo_encode_bwd(g, x, valid, cfg, n),
+                lambda: halo_encode_bwd_plain(g, x, valid, cfg, n))
             msg = ""
             if valid is not None:  # invalid rows' (nonzero) g adds nothing
                 alone = halo_encode_bwd(torch.where(valid[:, None], g, 0.0),
                                         x, None, cfg, n)
+                ref = halo_encode_bwd_plain(g, x, valid, cfg, n)
                 inv = float((alone - ref).abs().max())
                 check(inv <= BWD_RTOL * scale,
                       f"K1 bwd: invalid rows changed the gradient by {inv}")
                 msg = f", invalid rows add {inv:.3e}"
-            p1 = time_ms(lambda: halo_encode_bwd_plain(g, x, valid, cfg, n), 3)
-            k1 = time_ms(lambda: halo_encode_bwd(g, x, valid, cfg, n))
-            k2 = time_ms(lambda: halo_encode_bwd(g, x, valid, cfg, n))
-            p2 = time_ms(lambda: halo_encode_bwd_plain(g, x, valid, cfg, n), 3)
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                del alone, ref
             print(f"[k1 bwd] M={m} L=16 T=2^15 F={f} invalid {frac_invalid}: "
                   f"max_abs_err {err:.3e} (max |grad| {scale:.3e}, "
                   f"rel {err / scale:.3e}){msg}; kernel {ms:.3f} ms plain "
@@ -338,22 +372,36 @@ def k1_bwd_phase(dev):
     return result
 
 
-def train_phase(ws):
-    """Phase 7 -> (K1 forward launches, K1 backward launches) of the CLI
-    training run."""
+def train_phase(ws, backend="halo"):
+    """Phase 7 (halo, the -O default), 9 (bucket) or 10 (pallas) -> (the
+    trainer, forward launches, backward launches) of the backend's kernels
+    over the CLI training run."""
     from seal3d_tpu_torch import main_nerf
     from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_bwd
+    from seal3d_tpu_torch.ops.hash_encode import hash_encode, hash_encode_bwd
 
+    families = {"K1": (halo_encode, halo_encode_bwd),
+                "hash-encode": (hash_encode, hash_encode_bwd)}
+    own = "K1" if backend == "halo" else "hash-encode"
+    tag = "[train]" if backend == "halo" else f"[train {backend}]"
     argv = ["synthetic", "-O", "--bound", "1.0", "--dt_gamma", "0",
             "--min_near", "0.05", "--max_steps", "512", "--iters",
             str(TRAIN_STEPS), "--H", "256", "--W", "256", "--device", "cuda",
             "--workspace", ws]
-    halo_encode.launches = halo_encode_bwd.launches = 0
+    if backend != "halo":
+        argv += ["--grid_backend", backend]
+    for fns in families.values():
+        for fn in fns:
+            fn.launches = 0
     t0 = time.perf_counter()
     tr = main_nerf.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    fwd, bwd = halo_encode.launches, halo_encode_bwd.launches
+    fwd, bwd = (fn.launches for fn in families[own])
+    others = {name: [fn.launches for fn in fns]
+              for name, fns in families.items() if name != own}
+    check(tr.fcfg.grid_backend == backend,
+          f"the CLI picked {tr.fcfg.grid_backend}, expected {backend}")
 
     st = tr.train_stats
     grid = st["grid_updates"]
@@ -361,48 +409,203 @@ def train_phase(ws):
     part = [s for f, s in grid if not f]
     step_ms = st["window_s"] / st["window_steps"] * 1e3
     rays_s = tr.cfg.num_rays * st["window_steps"] / st["window_s"]
-    print(f"[train] main_nerf {TRAIN_STEPS} steps at 256x256: {cli_s:.2f} s "
-          f"in all (data, training, eval, 8 test renders)")
-    print(f"[train] steps {st['steps'] - st['window_steps'] + 1}-"
+    g = tr.fcfg.grid
+    print(f"{tag} main_nerf {TRAIN_STEPS} steps at 256x256, grid "
+          f"{g.backend}/{g.gridtype} T=2^{g.log2_hashmap_size} "
+          f"({g.total_params} rows): {cli_s:.2f} s in all (data, training, "
+          f"eval, 8 test renders)")
+    print(f"{tag} steps {st['steps'] - st['window_steps'] + 1}-"
           f"{st['steps']}: {step_ms:.3f} ms per step, {rays_s:.0f} train "
           f"rays/s (grid updates included); full grid update "
           f"{np.mean(full):.4f} s (x{len(full)}), partial "
           f"{np.mean(part):.4f} s (x{len(part)}); final flat_frac "
           f"{tr.opts.flat_frac}")
     losses = [h["loss"] for h in tr.history]
-    print(f"[train] logged losses {[round(v, 5) for v in losses]} at steps "
+    print(f"{tag} logged losses {[round(v, 5) for v in losses]} at steps "
           f"{[h['step'] for h in tr.history]}")
     check(len(losses) >= 2 and losses[-1] < losses[0],
-          f"the loss did not fall: {losses}")
+          f"{backend}: the loss did not fall: {losses}")
     ckpt = os.path.join(ws, "checkpoints", f"ngp_step{TRAIN_STEPS:07d}.npz")
     with np.load(ckpt) as data:
         keys = [k for k in data.files if k.startswith("opt_state/")]
         counts = [int(data["opt_state/0/count"]), int(data["opt_state/1/count"])]
-    print(f"[train] {os.path.basename(ckpt)}: {len(keys)} opt_state arrays, "
+    print(f"{tag} {os.path.basename(ckpt)}: {len(keys)} opt_state arrays, "
           f"counts {counts}")
     check(counts == [TRAIN_STEPS] * 2 and len(keys) == 2 * 7 + 2,
-          f"checkpoint optimizer state: {len(keys)} keys, counts {counts}")
+          f"{backend}: checkpoint optimizer state: {len(keys)} keys, counts "
+          f"{counts}")
     n_full, n_part = len(full), len(part)
     chunks = sum(s["chunks_rendered"] for s in tr.render_stats)
     field_calls = TRAIN_STEPS + 16 * n_full + 3 * n_part + chunks
-    print(f"[train] K1 launches: backward {bwd} (train steps {TRAIN_STEPS}), "
-          f"forward {fwd} (field calls {field_calls}: {TRAIN_STEPS} steps, "
-          f"{n_full}x16 + {n_part}x3 grid-update chunks, {chunks} rendered "
-          f"eval/test chunks)")
-    check(bwd == TRAIN_STEPS, f"K1 bwd launches {bwd} != steps {TRAIN_STEPS}")
-    check(fwd == field_calls, f"K1 fwd launches {fwd} != field calls "
+    print(f"{tag} {own} launches: backward {bwd} (train steps "
+          f"{TRAIN_STEPS}), forward {fwd} (field calls {field_calls}: "
+          f"{TRAIN_STEPS} steps, {n_full}x16 + {n_part}x3 grid-update chunks, "
+          f"{chunks} rendered eval/test chunks); other kernels "
+          f"(forward, backward) {others}")
+    check(bwd == TRAIN_STEPS, f"{own} bwd launches {bwd} != steps "
+                              f"{TRAIN_STEPS}")
+    check(fwd == field_calls, f"{own} fwd launches {fwd} != field calls "
                               f"{field_calls}")
+    check(all(n == 0 for c in others.values() for n in c),
+          f"{backend}: other kernels launched: {others}")
     psnr = tr.eval_history[-1]["psnr"]
-    print(f"[train] val PSNR {psnr:.2f} dB over 4 views at 256x256 (for "
+    print(f"{tag} val PSNR {psnr:.2f} dB over 4 views at 256x256 (for "
           f"reading only, not like for like: the JAX reference reached 38.92 "
           f"dB after 576 steps on a train view in its TPU run, "
           f"BENCH_r05.json)")
-    check(psnr >= MIN_VAL_PSNR, f"val PSNR {psnr:.2f} < {MIN_VAL_PSNR}")
+    check(psnr >= MIN_VAL_PSNR, f"{backend}: val PSNR {psnr:.2f} < "
+                                f"{MIN_VAL_PSNR}")
     pngs = [f for f in os.listdir(os.path.join(ws, "results"))
             if f.endswith(".png")]
-    check(len(pngs) == 8, f"{len(pngs)} test PNGs written")
+    check(len(pngs) == 8, f"{backend}: {len(pngs)} test PNGs written")
+    # the CLI writes two compressed checkpoints (the step one with the
+    # optimizer state, the eval's _best without), as the reference does;
+    # their cost grows with the table
+    t0 = time.perf_counter()
+    path = tr.save_checkpoint(os.path.join(ws, "timed.npz"))
+    print(f"{tag} one full .npz checkpoint "
+          f"({os.path.getsize(path) / 2**20:.1f} MiB, np.savez_compressed): "
+          f"{time.perf_counter() - t0:.2f} s")
     profile_steps(tr)
-    return fwd, bwd
+    return tr, fwd, bwd
+
+
+def hash_kernels_phase(dev):
+    """Phase 8 -> the kernel-table rows of hash_encode_fwd (timed at the
+    bucket layout, M=2^20, F=4) and hash_encode_bwd (bucket, M=196,608,
+    F=4); max_abs_err is the largest over every case, each of which is
+    checked."""
+    from seal3d_tpu_torch.ops.hash_encode import (hash_encode,
+                                                  hash_encode_bwd,
+                                                  hash_encode_bwd_plain,
+                                                  hash_encode_plain)
+    from seal3d_tpu_torch.ops.hashgrid import HashGridConfig
+
+    rng = np.random.default_rng(8)
+    layouts = {"bucket": 19, "pallas": 15}
+    fwd = {"name": "hash_encode_fwd", "route": "cuda",
+           "source": "seal3d_tpu_torch/csrc/hash_encode.cu",
+           "replaces": "seal3d_tpu/ops/pallas/hash_encode.py:189",
+           "launches": 0, "max_abs_err": 0.0}
+    bwd = {"name": "hash_encode_bwd", "route": "cuda",
+           "source": "seal3d_tpu_torch/csrc/hash_encode.cu",
+           "replaces": "seal3d_tpu/ops/pallas/hash_encode.py:256; "
+                       "seal3d_tpu/ops/pallas/bucket_grad.py:102",
+           "launches": 0, "max_abs_err": 0.0}
+    m = 2**20
+    x = torch.from_numpy(rng.uniform(0, 1, (m, 3)).astype(np.float32)).to(dev)
+    for backend, log2t in layouts.items():
+        cfg = HashGridConfig(num_levels=16, log2_hashmap_size=log2t,
+                             backend=backend)
+        for f in (4, 2):
+            tab = torch.from_numpy(rng.uniform(-1, 1, (cfg.total_params, f))
+                                   .astype(np.float32)).to(dev)
+            err, _, ms, plain_ms = compare(
+                lambda: hash_encode(tab, x, cfg),
+                lambda: hash_encode_plain(tab, x, cfg))
+            print(f"[hash fwd] {backend} T=2^{log2t} ({cfg.total_params} "
+                  f"rows) M=2^20 L=16 F={f}: max_abs_err {err:.3e} kernel "
+                  f"{ms:.3f} ms plain {plain_ms:.3f} ms")
+            check(err <= TOL, f"hash fwd {backend} F={f} disagrees with "
+                              f"plain: {err}")
+            fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+            if backend == "bucket" and f == 4:
+                fwd.update(ms=ms, plain_ms=plain_ms)
+            del tab
+    for backend, log2t in layouts.items():
+        cfg = HashGridConfig(num_levels=16, log2_hashmap_size=log2t,
+                             backend=backend)
+        n = cfg.total_params
+        for mb in (4096 * 48, 2**20):
+            xb = x[:mb]
+            for f in (4, 2):
+                g = torch.from_numpy(rng.uniform(-1, 1, (mb, 16 * f))
+                                     .astype(np.float32)).to(dev)
+                err, scale, ms, plain_ms = compare(
+                    lambda: hash_encode_bwd(g, xb, cfg, n),
+                    lambda: hash_encode_bwd_plain(g, xb, cfg, n))
+                print(f"[hash bwd] {backend} T=2^{log2t} M={mb} L=16 F={f}: "
+                      f"max_abs_err {err:.3e} (max |grad| {scale:.3e}, rel "
+                      f"{err / scale:.3e}); kernel {ms:.3f} ms plain "
+                      f"{plain_ms:.3f} ms")
+                check(err <= BWD_RTOL * scale,
+                      f"hash bwd {backend} M={mb} F={f} disagrees with "
+                      f"plain: {err} of {scale}")
+                bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
+                if backend == "bucket" and mb == 4096 * 48 and f == 4:
+                    bwd.update(ms=ms, plain_ms=plain_ms)
+    # what the bucket field pays around the kernels: the per-call stacking
+    # of the sigma and color tables into one F=4 table (as the reference),
+    # and the backward over the dense coarse levels alone (levels 0-4: their
+    # atomics contend, thousands of samples per entry), per (sample, level)
+    cfg = HashGridConfig(num_levels=16, log2_hashmap_size=19,
+                         backend="bucket")
+    t2 = [torch.zeros((cfg.total_params, 2), device=dev) for _ in range(2)]
+    cat_ms = time_ms(lambda: torch.cat(t2, dim=-1))
+    dense = sum(not h for *_, h, _ in cfg.level_params)
+    coarse = HashGridConfig(
+        num_levels=dense, log2_hashmap_size=19, backend="bucket",
+        desired_resolution=16 * cfg.per_level_scale ** (dense - 1))
+    check(all(not h for *_, h, _ in coarse.level_params),
+          "the coarse config has a hashed level")
+    mb = 4096 * 48
+    xb = x[:mb]
+    g = torch.from_numpy(rng.uniform(-1, 1, (mb, 16 * 4))
+                         .astype(np.float32)).to(dev)
+    all_ms = time_ms(lambda: hash_encode_bwd(g, xb, cfg, cfg.total_params))
+    gc = g.reshape(mb, 16, 4)[:, :dense].contiguous()
+    coarse_ms = time_ms(lambda: hash_encode_bwd(gc, xb, coarse,
+                                                coarse.total_params))
+    print(f"[hash] stacking the two T=2^19 tables (torch.cat, "
+          f"{4 * 4 * cfg.total_params / 2**20:.1f} MiB out): {cat_ms:.3f} ms "
+          f"per field call")
+    print(f"[hash bwd] contention, bucket T=2^19 M={mb} F=4 uniform points: "
+          f"all 16 levels {all_ms:.3f} ms ({all_ms / 16 * 1e3:.1f} us per "
+          f"level), the {dense} dense levels alone {coarse_ms:.3f} ms "
+          f"({coarse_ms / dense * 1e3:.1f} us per level)")
+    return [fwd, bwd]
+
+
+def pth_round_trip(tr, ws):
+    """Phases 9-10, end: the trained params through export_torch_ngp and
+    import_torch_ngp into a fresh params tree. The native (bucket) layout
+    must come back leaf for leaf bit-identical; a padded (pallas) layout
+    loses its never-addressed padding rows (zeros on import), so there the
+    tables must encode 2^20 random points bit-identically and the MLP
+    leaves come back bit-identical."""
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.ops.hash_encode import hash_encode
+    from seal3d_tpu_torch.train.checkpoint import (export_torch_ngp,
+                                                   flatten_tree,
+                                                   import_torch_ngp, map_tree)
+
+    cfg = tr.fcfg.grid
+    path = os.path.join(ws, "ngp.pth")
+    export_torch_ngp(path, tr.state.params, step=int(tr.state.step),
+                     grid_cfg=cfg)
+    fresh = ngp.init(tr.fcfg, generator=torch.Generator().manual_seed(7))
+    fresh = map_tree(fresh, lambda _, t: t.to(tr.device))
+    loaded = dict(flatten_tree(import_torch_ngp(path, fresh, grid_cfg=cfg)))
+    padded = cfg.backend == "pallas"
+    x = torch.rand((2**20, 3), device=tr.device,
+                   generator=torch.Generator(device=tr.device).manual_seed(3))
+    same, differ = [], []
+    for k, v in flatten_tree(tr.state.params):
+        if padded and k in ("encoder", "encoder_color"):
+            with torch.no_grad():
+                ok = torch.equal(hash_encode(v, x, cfg),
+                                 hash_encode(loaded[k], x, cfg))
+            rows = int((v != loaded[k]).any(-1).sum())
+            print(f"[pth {cfg.backend}] {k}: {rows} of {v.shape[0]} rows "
+                  f"differ (padding), encode of 2^20 points "
+                  f"{'bit-identical' if ok else 'DIFFERS'}")
+        else:
+            ok = torch.equal(v, loaded[k])
+        (same if ok else differ).append(k)
+    print(f"[pth {cfg.backend}] {os.path.getsize(path) / 2**20:.1f} MiB .pth "
+          f"round trip: {len(same)} leaves bit-identical "
+          f"{'(tables by their encode)' if padded else ''}, differ: {differ}")
+    check(not differ, f".pth round trip ({cfg.backend}) changed {differ}")
 
 
 def profile_steps(tr, n: int = 3):

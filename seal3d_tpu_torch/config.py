@@ -49,8 +49,11 @@ def common_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--grid_backend", type=str, default=None,
                    choices=["xla", "pallas", "bucket", "halo"],
                    help="hash-grid gather path: 'halo' = the K1 kernel over "
-                        "the wrap gridtype (-O default), 'xla' = plain "
-                        "gathers; 'pallas' and 'bucket' are not ported yet")
+                        "the wrap gridtype (-O default), 'bucket' = the "
+                        "hash-encode kernels over the reference's native "
+                        "levels (T=2^19 default), 'pallas' = the same "
+                        "kernels over levels padded to T (T=2^15 default), "
+                        "'xla' = plain gathers")
     p.add_argument("--coarse_steps", type=int, default=64)
     p.add_argument("--num_candidates", type=int, default=None)
     p.add_argument("--occ_stride", type=int, default=4)

@@ -40,17 +40,14 @@
 #include <cuda_runtime.h>
 #include <climits>
 
-// 8- and 16-byte atomicAdd on float2/float4 in global memory: sm_90 and
-// CUDA 12.8 or later.
-#if defined(__CUDACC_VER_MAJOR__) && \
-    (__CUDACC_VER_MAJOR__ > 12 ||     \
-     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 8))
-#define K1_VECTOR_ATOMICS 1
-#else
-#define K1_VECTOR_ATOMICS 0
-#endif
+#include "grid_vec.cuh"
 
 namespace {
+
+using grid::atomic_axpy;
+using grid::axpy;
+using grid::Vec;
+using grid::zero;
 
 constexpr int kMaxLevels = 32;
 constexpr int kThreads = 256;
@@ -60,49 +57,6 @@ struct LevelParams {
   float res_m1[kMaxLevels];  // resolution - 1: clamp bound of the position
   int res_m1_i[kMaxLevels];  // the same as an int: clamp bound of a corner
 };
-
-template <int F> struct Vec;
-template <> struct Vec<4> { using T = float4; };
-template <> struct Vec<2> { using T = float2; };
-
-__device__ __forceinline__ void zero(float4& a) { a = make_float4(0.f, 0.f, 0.f, 0.f); }
-__device__ __forceinline__ void zero(float2& a) { a = make_float2(0.f, 0.f); }
-
-__device__ __forceinline__ void axpy(float4& a, float w, const float4& v) {
-  a.x = __fadd_rn(a.x, __fmul_rn(w, v.x));
-  a.y = __fadd_rn(a.y, __fmul_rn(w, v.y));
-  a.z = __fadd_rn(a.z, __fmul_rn(w, v.z));
-  a.w = __fadd_rn(a.w, __fmul_rn(w, v.w));
-}
-__device__ __forceinline__ void axpy(float2& a, float w, const float2& v) {
-  a.x = __fadd_rn(a.x, __fmul_rn(w, v.x));
-  a.y = __fadd_rn(a.y, __fmul_rn(w, v.y));
-}
-
-// dst += w * v, atomically per element (row gradients of one corner)
-__device__ __forceinline__ void atomic_axpy(float4* dst, float w, const float4& v) {
-  const float4 u = make_float4(__fmul_rn(w, v.x), __fmul_rn(w, v.y),
-                               __fmul_rn(w, v.z), __fmul_rn(w, v.w));
-#if K1_VECTOR_ATOMICS
-  atomicAdd(dst, u);
-#else
-  float* d = reinterpret_cast<float*>(dst);
-  atomicAdd(d + 0, u.x);
-  atomicAdd(d + 1, u.y);
-  atomicAdd(d + 2, u.z);
-  atomicAdd(d + 3, u.w);
-#endif
-}
-__device__ __forceinline__ void atomic_axpy(float2* dst, float w, const float2& v) {
-  const float2 u = make_float2(__fmul_rn(w, v.x), __fmul_rn(w, v.y));
-#if K1_VECTOR_ATOMICS
-  atomicAdd(dst, u);
-#else
-  float* d = reinterpret_cast<float*>(dst);
-  atomicAdd(d + 0, u.x);
-  atomicAdd(d + 1, u.y);
-#endif
-}
 
 // The 8 trilinear corners of sample x at level l: level-local table rows
 // and interpolation weights. clamp(x*scale + 0.5, 0, res-1), floor, corner
@@ -272,4 +226,4 @@ extern "C" int halo_encode_bwd(const float* x, const unsigned char* valid,
 }
 
 // 1 when the library was built with vector (float2/float4) atomics.
-extern "C" int halo_encode_vector_atomics() { return K1_VECTOR_ATOMICS; }
+extern "C" int halo_encode_vector_atomics() { return GRID_VECTOR_ATOMICS; }

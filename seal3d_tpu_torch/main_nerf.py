@@ -9,7 +9,13 @@ trains from scratch (or resumes the workspace's latest checkpoint), saves
 val split's `[eval] PSNR` and renders the test split to `<ws>/results/`
 (PNGs, plus mp4s where imageio or cv2 is installed). With `--test --ckpt
 <file.npz>` it loads a checkpoint written by either package and only
-renders. The GUI, mesh export, the dense renderer, error-map sampling,
+renders. `--ckpt <file.pth>` loads the params of an upstream torch-ngp /
+Seal-3D checkpoint (or one written by `export_torch_ngp`) into `params`
+only, as the reference does: the EMA params that renders use, the
+optimizer state and the occupancy grid keep their init values (ROADMAP.md
+Queue 3). `--grid_backend bucket` (the reference's T=2^19 hash grid) and
+`--grid_backend pallas` (T=2^15, levels padded) select the hash-encode
+kernels. The GUI, mesh export, the dense renderer, error-map sampling,
 CLIP-guided random poses and bound > 1 are not ported yet (ROADMAP.md
 Queue 1) and raise NotImplementedError.
 """
@@ -67,10 +73,11 @@ def main(argv=None) -> Trainer:
         path = ckpt_io.latest_checkpoint(
             os.path.join(tcfg.workspace, "checkpoints"), "ngp")
     if path and path != "scratch" and os.path.exists(path):
-        if not path.endswith(".npz"):
-            raise SystemExit("the port loads .npz checkpoints (reference .pth "
-                             "import is not ported yet)")
-        tr.load_checkpoint(path)
+        if path.endswith(".pth"):
+            tr.state = tr.state._replace(params=ckpt_io.import_torch_ngp(
+                path, tr.state.params, grid_cfg=fcfg.grid))
+        else:
+            tr.load_checkpoint(path)
         print(f"[ckpt] loaded {path}")
     elif args.test:
         raise SystemExit(f"--test needs a checkpoint; none at {args.ckpt!r}")

@@ -32,9 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig,
-                                           corner_indices_weights,
-                                           gather_encode)
+from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig, gather_encode,
+                                           gather_encode_bwd)
 
 
 def halo_encode_plain(table: torch.Tensor, x: torch.Tensor,
@@ -54,15 +53,7 @@ def halo_encode_bwd_plain(g: torch.Tensor, x: torch.Tensor,
     """Plain PyTorch K1 backward: the table gradient [n_rows, F] of the
     cotangent g [M, L, F] (or [M, L*F]), one index_add_ of w * g over the 8
     corners of every valid row and level."""
-    m, levels = x.shape[0], cfg.num_levels
-    g = g.reshape(m, levels, -1)
-    idx, w = corner_indices_weights(x, cfg)             # [M, L, 8]
-    contrib = w[..., None] * g[:, :, None, :]           # [M, L, 8, F]
-    if valid is not None:
-        contrib = torch.where(valid[:, None, None, None], contrib, 0.0)
-    f_dim = g.shape[-1]
-    return g.new_zeros((n_rows, f_dim)).index_add_(
-        0, idx.reshape(-1), contrib.reshape(-1, f_dim))
+    return gather_encode_bwd(g, x, cfg, n_rows, valid)
 
 
 class _HaloEncode(torch.autograd.Function):

@@ -2,21 +2,26 @@
 seal3d_tpu/ops/hashgrid.py).
 
 `HashGridConfig.level_params` is copied exactly: its per-backend padding
-fixes the table layout (the 'halo' backend pads every level to T, so level l
-starts at l*T), and checkpoint interchange with the JAX package depends on
-it. Backends:
-- 'halo' (the -O path, gridtype 'wrap'): the hand-written K1 kernel on a CUDA
-  tensor, its plain version on a CPU tensor (ops/halo_encode.py);
-- 'xla': the plain corner gather, any gridtype.
-The reference's 'pallas' and 'bucket' backends are not ported yet.
+fixes the table layout (the 'halo' and 'pallas' backends pad every level to
+T, so level l starts at l*T; 'xla' and 'bucket' size levels natively,
+8-aligned), and checkpoint interchange with the JAX package depends on it.
+`BACKENDS` pairs each backend's plain PyTorch path with the wrapper of its
+hand-written kernel (which runs the plain path on a CPU tensor):
+- 'halo' (the -O path, gridtype 'wrap'): K1 (ops/halo_encode.py);
+- 'pallas' (gridtype 'hash', levels padded to T) and 'bucket' (native
+  levels, the reference's T=2^19 capacity): K3 and K2, one kernel pair over
+  both layouts (ops/hash_encode.py);
+- 'xla': the plain corner gather only, any gridtype.
+The 'pallas' backend's unfused branch (align_corners or input_dim != 3,
+the reference's K5) is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from functools import cached_property
-from typing import Optional, Sequence, Tuple
+from functools import cache, cached_property
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -166,12 +171,86 @@ def gather_encode(table: torch.Tensor, xf: torch.Tensor,
     return (feats * w[..., None]).sum(dim=2)
 
 
+def gather_encode_bwd(g: torch.Tensor, xf: torch.Tensor, cfg: HashGridConfig,
+                      n_rows: int,
+                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The table gradient [n_rows, F] of `gather_encode` for the cotangent
+    g [M, L, F] (or [M, L*F]): one index_add_ of w * g over the 8 corners of
+    every row and level (rows whose `valid` is false add nothing)."""
+    m, levels = xf.shape[0], cfg.num_levels
+    g = g.reshape(m, levels, -1)
+    idx, w = corner_indices_weights(xf, cfg)            # [M, L, 2^dim]
+    contrib = w[..., None] * g[:, :, None, :]           # [M, L, 2^dim, F]
+    if valid is not None:
+        contrib = torch.where(valid[:, None, None, None], contrib, 0.0)
+    f_dim = g.shape[-1]
+    return g.new_zeros((n_rows, f_dim)).index_add_(
+        0, idx.reshape(-1), contrib.reshape(-1, f_dim))
+
+
+@dataclass(frozen=True)
+class Backend:
+    """One grid backend: `plain(table, xf, valid, cfg) -> [M, L, F]` is its
+    plain PyTorch path; `kernel`, with the same signature, wraps its
+    hand-written kernel (plain version on a CPU tensor, the kernel on a CUDA
+    tensor), or is None for a backend that has no kernel; `check(cfg)`
+    raises for configurations the backend does not take."""
+
+    plain: Callable
+    kernel: Optional[Callable]
+    check: Callable[[HashGridConfig], None]
+
+    @property
+    def encode(self) -> Callable:
+        return self.kernel or self.plain
+
+
+def _takes_any(cfg: HashGridConfig):
+    """The plain gather takes every gridtype, dimension and alignment."""
+
+
+def _check_halo(cfg: HashGridConfig):
+    if cfg.gridtype != "wrap" or cfg.input_dim != 3 or cfg.align_corners:
+        raise ValueError("halo backend requires gridtype='wrap', "
+                         "input_dim=3 and align_corners=False")
+
+
+def _check_pallas(cfg: HashGridConfig):
+    if cfg.input_dim != 3 or cfg.align_corners:
+        raise NotImplementedError(
+            "the 'pallas' backend's unfused branch (align_corners or "
+            "input_dim != 3: kernel K5) is not ported yet: ROADMAP.md "
+            "Queue 2, K5")
+
+
+@cache
+def backends() -> dict:
+    """name -> Backend (built on first use: the kernel modules import this
+    one)."""
+    from seal3d_tpu_torch.ops import halo_encode as k1
+    from seal3d_tpu_torch.ops import hash_encode as k3
+
+    def hash_plain(table, xf, valid, cfg):
+        return k3.hash_encode_plain(table, xf, cfg)
+
+    def hash_kernel(table, xf, valid, cfg):
+        return k3.hash_encode(table, xf, cfg)
+
+    return {
+        "xla": Backend(lambda t, xf, v, c: gather_encode(t, xf, c), None,
+                       _takes_any),
+        "halo": Backend(k1.halo_encode_plain, k1.halo_encode, _check_halo),
+        "pallas": Backend(hash_plain, hash_kernel, _check_pallas),
+        "bucket": Backend(hash_plain, hash_kernel, _takes_any),
+    }
+
+
 def hashgrid_encode(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig,
                     valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Encode positions: table [total_params, F], x [..., dim] in [0, 1] ->
     [..., L*F] level-major features. F is table.shape[-1] (stacked tables
-    widen it). `valid` zeroes invalid rows on the halo backend (the xla
-    backend ignores it, as in the reference)."""
+    widen it). `valid` zeroes invalid rows on the halo backend (the other
+    backends ignore it and compute every row, as in the reference)."""
     dim = cfg.input_dim
     f_dim = table.shape[-1]
     batch_shape = x.shape[:-1]
@@ -180,20 +259,12 @@ def hashgrid_encode(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig,
         raise NotImplementedError(
             "level-sharded tensor parallelism is TPU-mesh machinery the port "
             "leaves out (ROADMAP.md 'Not to port')")
-    if cfg.backend == "halo":
-        if cfg.gridtype != "wrap" or dim != 3 or cfg.align_corners:
-            raise ValueError("halo backend requires gridtype='wrap', "
-                             "input_dim=3 and align_corners=False")
-        from seal3d_tpu_torch.ops.halo_encode import halo_encode
-
-        vf = None if valid is None else valid.reshape(-1)
-        out = halo_encode(table, xf, vf, cfg)
-    elif cfg.backend == "xla":
-        out = gather_encode(table, xf, cfg)
-    else:
-        raise NotImplementedError(
-            f"grid backend {cfg.backend!r} (kernels K2/K3/K5) is not ported "
-            "yet: ROADMAP.md Queue 1, 'Other backends and families'")
+    if cfg.backend not in backends():
+        raise ValueError(f"unknown grid backend {cfg.backend!r}")
+    backend = backends()[cfg.backend]
+    backend.check(cfg)
+    vf = None if valid is None else valid.reshape(-1)
+    out = backend.encode(table, xf, vf, cfg)
     return out.reshape(*batch_shape, cfg.num_levels * f_dim)
 
 
@@ -212,3 +283,28 @@ def hashgrid_encode_stacked(tables: Sequence[torch.Tensor], x: torch.Tensor,
         parts.append(part.reshape(*part.shape[:-2], cfg.num_levels * f))
         start += f
     return parts
+
+
+def convert_table_layout(table: torch.Tensor, cfg_src: HashGridConfig,
+                         cfg_dst: HashGridConfig) -> torch.Tensor:
+    """Re-pack a flat table between backend layouts (per-level offsets
+    differ: xla and bucket size levels natively, 8-aligned; pallas and halo
+    pad every level to T). Only valid at equal hashmap size and level
+    geometry. Extra destination padding is zero-filled; truncated source
+    padding was never addressed. Used by `.pth` import and export
+    (train/checkpoint.py)."""
+    if cfg_src.log2_hashmap_size != cfg_dst.log2_hashmap_size:
+        raise ValueError("cannot convert between different hashmap sizes: "
+                         f"{cfg_src.log2_hashmap_size} vs "
+                         f"{cfg_dst.log2_hashmap_size}")
+    parts = []
+    for (r1, off1, n1, uh1, _), (r2, _, n2, uh2, _) in zip(
+            cfg_src.level_params, cfg_dst.level_params):
+        if r1 != r2 or uh1 != uh2:
+            raise ValueError("level geometry mismatch")
+        blk = table[off1:off1 + min(n1, n2)]
+        if n2 > blk.shape[0]:
+            blk = torch.cat([blk, blk.new_zeros((n2 - blk.shape[0],
+                                                 table.shape[-1]))])
+        parts.append(blk)
+    return torch.cat(parts)

@@ -1,11 +1,13 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-Every `*.cu` file under `seal3d_tpu_torch/csrc/` is compiled by one nvcc call
-into one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds) under `seal3d_tpu_torch/_build/`, named by a digest of
-the sources and flags so an edited source never loads a stale library.
-Wrappers pass tensor pointers and the current stream as `c_void_p`; each C
-entry point returns `cudaGetLastError()` after its launch.
+Every `*.cu` file under `seal3d_tpu_torch/csrc/` is compiled by its own nvcc
+process, all started together, and the objects are linked into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds) under `seal3d_tpu_torch/_build/`. The library is named by a digest
+of the sources, the headers they include (`*.cuh`) and the flags, so an
+edited source or header never loads a stale library. Wrappers pass tensor
+pointers and the current stream as `c_void_p`; each C entry point returns
+`cudaGetLastError()` after its launch.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from typing import NamedTuple
 
@@ -24,7 +27,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 class BuildResult(NamedTuple):
@@ -48,8 +51,10 @@ def build_library() -> BuildResult:
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
+        digest.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             digest.update(f.read())
     out = os.path.join(BUILD_DIR,
@@ -57,15 +62,28 @@ def build_library() -> BuildResult:
     if os.path.exists(out):
         return BuildResult(out, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return BuildResult(out, seconds, proc.stdout + proc.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o")
+                for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for src, p, log in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"({p.returncode}):\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(lib, out)  # atomic: a concurrent loader never sees half a file
+    return BuildResult(out, time.perf_counter() - t0, "".join(logs))
 
 
 @functools.cache

@@ -10,16 +10,25 @@ have the same tree shape, so its keys are the reference's: a checkpoint
 moves between the two packages in either direction, through the `.npz`
 file (`save_state` / `load_state`) or in memory as a dict of numpy arrays
 keyed the same way (`state_to_arrays` / `state_from_arrays`).
+
+`export_torch_ngp` / `import_torch_ngp` write and read the NGP params as a
+torch `.pth` in the upstream torch-ngp / Seal-3D state-dict naming (port of
+the reference's functions of the same names), converting padded-level table
+layouts to the reference's native one and back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import os
+import re
 from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from seal3d_tpu_torch.ops.hashgrid import convert_table_layout
 
 
 def flatten_tree(tree: Any, prefix: str = ""):
@@ -130,3 +139,74 @@ def prune_checkpoints(directory: str, name: str, keep: int = 2):
 def latest_checkpoint(directory: str, name: str):
     files = sorted(glob.glob(os.path.join(directory, f"{name}_step*.npz")))
     return files[-1] if files else None
+
+
+_TORCH_NGP_LAYER = re.compile(r"(sigma_net|color_net|bg_net)\.(\d+)\.weight")
+
+
+def _native(grid_cfg):
+    """The reference's (xla) layout of `grid_cfg`'s levels, or None when
+    `grid_cfg` already has it (or is not given)."""
+    if grid_cfg is None or grid_cfg.backend not in ("pallas", "halo"):
+        return None
+    return dataclasses.replace(grid_cfg, backend="xla")
+
+
+def export_torch_ngp(path: str, params: dict, step: int = 0, grid_cfg=None):
+    """Write NGP params as a reference-compatible `.pth`: `encoder.embeddings`
+    and `encoder_color.embeddings` [rows, F] in the native level layout
+    (tables of a padded-level `grid_cfg` are re-packed), and the bias-free
+    Linears `{sigma,color}_net.{i}.weight` [out, in] (the params store
+    [in, out]). For 'halo' configs the exported entries keep wrap indexing,
+    which only this package and the JAX one read."""
+    native = _native(grid_cfg)
+
+    def table(t):
+        t = t.detach().cpu()
+        if native is not None:
+            t = convert_table_layout(t, grid_cfg, native)
+        return t.contiguous().clone()
+
+    sd = {}
+    for enc in ("encoder", "encoder_color"):
+        if enc in params:
+            sd[f"{enc}.embeddings"] = table(params[enc])
+    for net in ("sigma_net", "color_net", "bg_net"):
+        for i, layer in enumerate(params.get(net, ())):
+            sd[f"{net}.{i}.weight"] = layer["w"].detach().cpu().T.contiguous()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"model": sd, "global_step": step, "epoch": 0, "stats": {}},
+               path)
+
+
+def import_torch_ngp(pth_path: str, params: dict, grid_cfg=None) -> dict:
+    """A reference torch-ngp / Seal-3D NGP `.pth` mapped onto a copy of the
+    params tree `params` (devices and dtypes kept). Reference tables use the
+    native level layout; pass `grid_cfg` (the HashGridConfig of `params`) so
+    tables of a padded-level config are re-packed, their padding rows
+    zero-filled."""
+    ckpt = torch.load(pth_path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model", ckpt)
+    out = map_tree(params, lambda _, t: t)      # a new tree, the same leaves
+    native = _native(grid_cfg)
+
+    def like(v, ref):
+        return v.detach().to(device=ref.device, dtype=ref.dtype).contiguous()
+
+    def table(v, ref):
+        if native is not None and tuple(v.shape) != tuple(ref.shape):
+            v = convert_table_layout(v.detach().float(), native, grid_cfg)
+        return like(v, ref)
+
+    for k, v in sd.items():
+        for enc in ("encoder_color", "encoder"):
+            if k.endswith(f"{enc}.embeddings") and enc in out:
+                out[enc] = table(v, out[enc])
+                break
+        else:
+            m = _TORCH_NGP_LAYER.search(k)
+            if m:
+                net, i = m.group(1), int(m.group(2))
+                if net in out and i < len(out[net]):
+                    out[net][i]["w"] = like(v.T, out[net][i]["w"])
+    return out

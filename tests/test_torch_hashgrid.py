@@ -132,7 +132,9 @@ def test_halo_plain_gradient_matches_oracle_gradient():
 
 
 def test_unported_backends_raise():
-    _, tc = _cfgs(log2_hashmap_size=12, num_levels=2, backend="pallas")
+    """The 'pallas' backend's unfused branch (align_corners: kernel K5)."""
+    _, tc = _cfgs(log2_hashmap_size=12, num_levels=2, backend="pallas",
+                  align_corners=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         thg.hashgrid_encode(torch.zeros(tc.total_params, 2),
                             torch.rand(4, 3), tc)

@@ -7,9 +7,11 @@ the reference's own key splits (trainer.py:329, occupancy.py:131-135) and
 hands the same numbers to the port. JAX runs unjitted (eagerly): inside
 `jax.jit` XLA:CPU contracts the jittered start t0 + perturb * dt_min into an
 FMA, which moves samples. Tolerances:
-- loss: rtol 1e-4 against fp32 encodes (xla/hash, and halo/wrap with the
+- loss: rtol 1e-4 against fp32 encodes (xla/hash; halo/wrap with the
   reference's K1 replaced by its plain take-gather over
-  `corner_indices_weights`, as tests/test_ops.py:365-378 holds K1), 2e-2
+  `corner_indices_weights`, as tests/test_ops.py:365-378 holds K1;
+  pallas/hash with K3 replaced the same way; bucket/hash, whose forward is
+  the take-gather and whose backward runs the interpreted K2 at f32), 2e-2
   through the interpreted Pallas K1;
 - gradients, per leaf: 1e-2 of the leaf's largest entry against fp32
   encodes (the MLP rounds operands and activation cotangents to bf16 on both
@@ -113,18 +115,42 @@ def _k1_take_oracle(monkeypatch):
     monkeypatch.setattr(jhalo, "halo_encode_fused", oracle)
 
 
+def _k3_take_oracle(monkeypatch):
+    """Route the reference's pallas backend through the plain fp32
+    take-gather instead of its Pallas kernel K3 (whose level stack
+    [L, T/128, F*128] is unpacked back to the flat table first)."""
+    from seal3d_tpu.ops.hashgrid import corner_indices_weights
+    from seal3d_tpu.ops.pallas import hash_encode as jhash
+
+    def oracle(stack, x, cfg, tile=1024):
+        levels, rows, fw = stack.shape
+        f = fw // 128
+        table = stack.reshape(levels, rows, f, 128).transpose(
+            0, 1, 3, 2).reshape(-1, f)
+        m = x.shape[0]
+        idx, w = corner_indices_weights(x, cfg)
+        feats = jnp.take(table, idx.reshape(m, -1), axis=0).reshape(
+            m, cfg.num_levels, 8, -1)
+        return (feats * w[..., None]).sum(axis=2).reshape(m, -1)
+
+    monkeypatch.setattr(jhash, "hash_encode_fused", oracle)
+
+
 @pytest.mark.parametrize("backend,gridtype,flat_frac,k1,tol", [
     ("xla", "hash", None, None, 1e-2),   # [N, K] grid branch (pre-retune)
     ("xla", "hash", 0.5, None, 1e-2),    # single-level flat branch
     ("halo", "wrap", None, "take", 1e-2),  # the -O field, both branches
     ("halo", "wrap", 0.5, "take", 1e-2),
     ("halo", "wrap", 0.5, "pallas", 4e-2),
+    ("bucket", "hash", 0.5, "pallas", 1e-2),  # the interpreted K2 backward
+    ("pallas", "hash", None, "take", 1e-2),   # K3 as its fp32 take-oracle
 ])
 def test_step_loss_and_grads_match_jax(scene, monkeypatch, backend, gridtype,
                                        flat_frac, k1, tol):
     ds, _ = scene
     if k1 == "take":
-        _k1_take_oracle(monkeypatch)
+        oracle = _k3_take_oracle if backend == "pallas" else _k1_take_oracle
+        oracle(monkeypatch)
     jtr, ttr = _trainers(scene, backend, gridtype, flat_frac)
     kimg, kray, _, kjit = jax.random.split(jax.random.PRNGKey(11), 4)
     img_idx = jax.random.randint(kimg, (), 0, len(ds))
@@ -158,8 +184,9 @@ def test_step_loss_and_grads_match_jax(scene, monkeypatch, backend, gridtype,
     tloss, tgrads, tout = ttr.loss_and_grads(ttr.state.params, ttr.state.occ,
                                              batch, rand.jitter)
     assert int(tout["num_samples"]) == int(jout["num_samples"]) > 0
-    np.testing.assert_allclose(float(tloss), float(jloss),
-                               rtol=2e-2 if k1 == "pallas" else 1e-4)
+    np.testing.assert_allclose(
+        float(tloss), float(jloss),
+        rtol=2e-2 if (backend, k1) == ("halo", "pallas") else 1e-4)
     jflat = {k: np.asarray(v) for k, v in
              zip([k for k, _ in flatten_tree(tgrads)],
                  jax.tree.leaves(jgrads))}
