@@ -52,7 +52,44 @@ Phases, each of which raises (exit code != 0) when it fails:
    `convert_table_layout` (padding rows come back zero): the imported
    tables encode 2^20 random points bit-identically to the trained ones,
    and the MLP leaves are bit-identical.
-The line before the last is the kernel table as JSON; the last line is
+11. K4 (ladder_plan) against its plain PyTorch version at the -O eval point
+   (bound 1, max_steps 512, 256 candidates in groups of 4, 32 coarse steps,
+   pool 64) on the busiest chunk of a real 800x800 test view, bitfield and
+   occupancy AABB from phase 7's trained state: t0 and far within 1e-6, the
+   kept groups' mismatch share <= 1e-3 (0 expected), the demand within 1e-3
+   relative and >= the samples the fine repack keeps. Both times from CUDA
+   events, and the kernel launches the plain version takes (profiler);
+12. the 8 test views at 800x800 from phase 7's state through
+   `Trainer.render_image` with `RenderOptions(tl_kernel=True)` and `False`:
+   images within 1e-5, depths within 1e-4, equal sample counts; K4 launched
+   once per demand probe and once per rendered chunk; seconds and kernel
+   launches per view both ways;
+13. K5 (multilevel_lookup forward and backward) through `hashgrid_encode`
+   with backend 'pallas' where the fused encode does not apply: (a) L=16,
+   T=2^15, 3-D, align_corners, F=4 and F=2, M=2^18; (b) the geometry of
+   NGP's background grid (L=4, T=2^19, F=2, 2-D), M=2^20. Against the plain
+   gather and its autograd gradient (forward <= 1e-5, backward within
+   BWD_RTOL of the largest entry); then the kernels alone on the same
+   indices against their plain versions and against the bare
+   `index_select` / `index_add_` calls, all timed;
+14. the bbox edit through the port's CLI at full -O width, 256x256 views
+   (`python -m seal3d_tpu_torch.main_SealNeRF synthetic -O --bound 1.0
+   --dt_gamma 0 --min_near 0.05 --max_steps 512 --H 256 --W 256
+   --seal_config seal_config_bbox --teacher_ckpt <phase 7's step-576 .npz>
+   --pretraining_epochs 50 --extra_epochs 500`): the pretrain loss falls;
+   timer.json, seal.json and options.json exist; the proxied dataset has
+   depths; K1's forward ran once per field call and its backward once per
+   pretrain batch and finetune step; all test views are finite; on 4 val
+   poses the student against the mapped teacher reads >= 25 dB, and on the
+   pixels the edit changes the unedited teacher reads lower than the
+   student against the same target (the edit took); after
+   restore_grid the bitfield no longer holds the force-fill; the edited
+   test views through K4 equal those without. Prints pretrain s per epoch,
+   proxy s, finetune ms per step and each stage's share of the wall.
+The line before the last is the kernel table as JSON (seven kernels, each
+with its launches on the main paths, its error, its time, the plain
+version's, the bound from this run's shapes and, where one PyTorch call
+computes the same function, that call's time); the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without a CUDA device
 the script exits non-zero before printing any result.
 """
@@ -76,6 +113,14 @@ TOL = 1e-5  # K1 vs plain: fp32 both, summation order only
 BWD_RTOL = 1e-5
 TRAIN_STEPS = 576
 MIN_VAL_PSNR = 25.0  # a field with broken gradients stays near 12-15 dB
+MIN_EDIT_PSNR = 25.0  # the student against the mapped teacher, 4 val poses
+SEAL_EPOCHS, SEAL_STEPS = 50, 500   # the recipe's pretrain epochs, finetune
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
+# fp32 operations/s outside the tensor cores; the bound of a kernel is the
+# larger of its bytes over the first and its operations over the second
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 
 
 def check(cond: bool, msg: str):
@@ -97,20 +142,66 @@ def time_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_turns(kernel, plain):
+    """(kernel ms, plain ms) of two no-argument callables, timed in turns
+    plain, kernel, kernel, plain so clock drift hits both alike."""
+    with torch.no_grad():
+        p1 = time_ms(plain, 3)
+        k1 = time_ms(kernel)
+        k2 = time_ms(kernel)
+        p2 = time_ms(plain, 3)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
 def compare(kernel, plain):
     """(max abs diff, max |plain|, kernel ms, plain ms) of two no-argument
-    callables; timed in turns plain, kernel, kernel, plain so clock drift
-    hits both alike."""
+    callables that return one tensor."""
     with torch.no_grad():
         ref = plain()
         err = float((kernel() - ref).abs().max())
         scale = float(ref.abs().max())
         del ref
-        p1 = time_ms(plain, 3)
-        k1 = time_ms(kernel)
-        k2 = time_ms(kernel)
-        p2 = time_ms(plain, 3)
-    return err, scale, (k1 + k2) / 2, (p1 + p2) / 2
+    return (err, scale, *time_turns(kernel, plain))
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take for n_bytes moved (each input
+    read once, each output written once) and n_ops fp32 operations."""
+    by = n_bytes / PEAK_BYTES_S * 1e3
+    op = n_ops / PEAK_FP32_S * 1e3
+    return {"bound_ms": max(by, op),
+            "bound_by": "bytes" if by >= op else "operations"}
+
+
+def encode_bound(m, n_valid, levels, f, table_rows, valid_bytes=0,
+                 hashed_levels=0) -> dict:
+    """Bound of a multiresolution encode, forward or backward alike: per row
+    x (12 B) and its valid byte, the [M, L*F] fp32 features (forward: out;
+    backward: the cotangent in) once, the [rows, F] fp32 table once (read,
+    or written as the gradient). Per valid (row, level): 8 corners x F
+    multiply-adds, ~30 operations of cell and weight arithmetic, and 5 per
+    corner more where the level is hashed."""
+    n_bytes = m * (12 + valid_bytes) + 4 * f * (table_rows + m * levels)
+    n_ops = n_valid * (levels * (16 * f + 30) + hashed_levels * 40)
+    return bound(n_bytes, n_ops)
+
+
+def count_launches(fn) -> int:
+    """Kernel launches of one call of fn (after one warm-up call), from
+    torch.profiler's CUDA-runtime events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in LAUNCH_KEYS)
+
+
+def psnr(a, b) -> float:
+    return float(-10.0 * torch.log10(((a - b) ** 2).mean()))
 
 
 def kernel_vs_plain(table, x, valid, cfg):
@@ -145,7 +236,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     built = build_library()
     load_library()
-    print(f"[build] K1 library {os.path.basename(built.path)}: "
+    print(f"[build] kernel library {os.path.basename(built.path)}: "
           f"{time.perf_counter() - t0:.2f} s (nvcc {built.seconds:.2f} s)")
     for line in built.log.splitlines():
         if "registers" in line or "spill" in line:
@@ -153,9 +244,11 @@ def main(argv=None):
 
     with tempfile.TemporaryDirectory() as tmp:
         ws = args.workspace or tmp
-        kernels = run_phases(dev, ws)
-        bwd_err, bwd_ms, bwd_plain_ms = k1_bwd_phase(dev)
-        _, fwd_launches, bwd_launches = train_phase(os.path.join(ws, "train"))
+        k1_fwd, ds800 = run_phases(dev, ws)
+        k1_bwd = k1_bwd_phase(dev)
+        tr7, fwd_launches, bwd_launches = train_phase(os.path.join(ws, "train"))
+        k1_fwd["launches"] += fwd_launches
+        k1_bwd["launches"] += bwd_launches
         hash_rows = hash_kernels_phase(dev)
         for backend in ("bucket", "pallas"):
             tr, fwd, bwd = train_phase(os.path.join(ws, f"train_{backend}"),
@@ -164,13 +257,24 @@ def main(argv=None):
             hash_rows[0]["launches"] += fwd
             hash_rows[1]["launches"] += bwd
             del tr
-    kernels[0]["launches"] += fwd_launches
-    kernels.append({"name": "halo_encode_bwd", "route": "cuda",
-                    "source": "seal3d_tpu_torch/csrc/halo_encode.cu",
-                    "replaces": "seal3d_tpu/ops/pallas/halo_encode.py:429",
-                    "launches": bwd_launches, "max_abs_err": bwd_err,
-                    "ms": bwd_ms, "plain_ms": bwd_plain_ms})
-    kernels.extend(hash_rows)
+        k4 = ladder_phase(dev, tr7, ds800, ws)
+        del ds800
+        k5_rows = lookup_phase(dev)
+        teacher_ckpt = os.path.join(ws, "train", "checkpoints",
+                                    f"ngp_step{TRAIN_STEPS:07d}.npz")
+        fwd, bwd, k4_seal = seal_phase(dev, os.path.join(ws, "seal"),
+                                       teacher_ckpt)
+        k1_fwd["launches"] += fwd
+        k1_bwd["launches"] += bwd
+        k4["launches"] += k4_seal
+    kernels = [k1_fwd, k1_bwd, *hash_rows, k4, *k5_rows]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for row in kernels:
+        check(set(row) == keys, f"kernel row {row.get('name')}: keys "
+                                f"{sorted(set(row) ^ keys)} missing or extra")
+        check(row["launches"] > 0, f"{row['name']} was launched no time on "
+                                   f"the main paths")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -320,16 +424,21 @@ def run_phases(dev, ws):
           f"{d_dep:.3e}")
     check(d_img <= 1e-3 and d_dep <= 1e-3,
           f"card render disagrees with the CPU reference: {d_img} {d_dep}")
-    return [{"name": "halo_encode_fwd", "route": "cuda",
-             "source": "seal3d_tpu_torch/csrc/halo_encode.cu",
-             "replaces": "seal3d_tpu/ops/pallas/halo_encode.py:368",
-             "launches": launches, "max_abs_err": max_err,
-             "ms": ms, "plain_ms": plain_ms}]
+    # the row is timed at the real chunk: its bound from that chunk's shapes
+    n_valid = int(mf.valid.sum())
+    return {"name": "halo_encode_fwd", "route": "cuda",
+            "source": "seal3d_tpu_torch/csrc/halo_encode.cu",
+            "replaces": "seal3d_tpu/ops/pallas/halo_encode.py:368",
+            "launches": launches, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **encode_bound(xn.shape[0], n_valid, 16, 4, table.shape[0],
+                           valid_bytes=1)}, ds
 
 
 def k1_bwd_phase(dev):
-    """Phase 6 -> (max abs err, kernel ms, plain ms) of the M=196,608 F=4
-    case (the train step's shape); every case is checked."""
+    """Phase 6 -> the kernel-table row of halo_encode_bwd, timed at the
+    M=196,608 F=4 case (the train step's shape); max_abs_err is that
+    case's; every case is checked."""
     from seal3d_tpu_torch.ops.halo_encode import (halo_encode_bwd,
                                                   halo_encode_bwd_plain)
     from seal3d_tpu_torch.ops.hashgrid import HashGridConfig
@@ -368,7 +477,13 @@ def k1_bwd_phase(dev):
             check(err <= BWD_RTOL * scale,
                   f"K1 bwd M={m} F={f} disagrees with plain: {err} of {scale}")
             if result is None:
-                result = (err, ms, plain_ms)
+                result = {
+                    "name": "halo_encode_bwd", "route": "cuda",
+                    "source": "seal3d_tpu_torch/csrc/halo_encode.cu",
+                    "replaces": "seal3d_tpu/ops/pallas/halo_encode.py:429",
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": None,
+                    **encode_bound(m, m, 16, f, n)}
     return result
 
 
@@ -510,7 +625,10 @@ def hash_kernels_phase(dev):
                               f"plain: {err}")
             fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
             if backend == "bucket" and f == 4:
-                fwd.update(ms=ms, plain_ms=plain_ms)
+                hashed = sum(h for *_, h, _ in cfg.level_params)
+                fwd.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                           **encode_bound(m, m, 16, f, cfg.total_params,
+                                          hashed_levels=hashed))
             del tab
     for backend, log2t in layouts.items():
         cfg = HashGridConfig(num_levels=16, log2_hashmap_size=log2t,
@@ -524,16 +642,19 @@ def hash_kernels_phase(dev):
                 err, scale, ms, plain_ms = compare(
                     lambda: hash_encode_bwd(g, xb, cfg, n),
                     lambda: hash_encode_bwd_plain(g, xb, cfg, n))
+                hashed = sum(h for *_, h, _ in cfg.level_params)
+                bnd = encode_bound(mb, mb, 16, f, n, hashed_levels=hashed)
                 print(f"[hash bwd] {backend} T=2^{log2t} M={mb} L=16 F={f}: "
                       f"max_abs_err {err:.3e} (max |grad| {scale:.3e}, rel "
                       f"{err / scale:.3e}); kernel {ms:.3f} ms plain "
-                      f"{plain_ms:.3f} ms")
+                      f"{plain_ms:.3f} ms bound {bnd['bound_ms']:.4f} ms")
                 check(err <= BWD_RTOL * scale,
                       f"hash bwd {backend} M={mb} F={f} disagrees with "
                       f"plain: {err} of {scale}")
                 bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
                 if backend == "bucket" and mb == 4096 * 48 and f == 4:
-                    bwd.update(ms=ms, plain_ms=plain_ms)
+                    bwd.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                               **bnd)
     # what the bucket field pays around the kernels: the per-call stacking
     # of the sigma and color tables into one F=4 table (as the reference),
     # and the backward over the dense coarse levels alone (levels 0-4: their
@@ -556,6 +677,21 @@ def hash_kernels_phase(dev):
     gc = g.reshape(mb, 16, 4)[:, :dense].contiguous()
     coarse_ms = time_ms(lambda: hash_encode_bwd(gc, xb, coarse,
                                                 coarse.total_params))
+    # K2's own function (a scatter-add of per-corner rows into the table)
+    # as one PyTorch call, index_add_, on this backward's corner keys: the
+    # kernel above also forms the rows (weights x cotangent) on the way
+    from seal3d_tpu_torch.ops.hashgrid import corner_indices_weights
+
+    with torch.no_grad():
+        keys, w = corner_indices_weights(xb, cfg)          # [M, L, 8]
+        rows = (g.reshape(mb, 16, 1, 4) * w[..., None]).reshape(-1, 4)
+        keys = keys.reshape(-1)
+        del w
+        lib_ms = time_ms(lambda: torch.zeros(
+            (cfg.total_params, 4), device=dev).index_add_(0, keys, rows), 5)
+    print(f"[hash bwd] the scatter alone as index_add_ ({keys.shape[0]} rows "
+          f"of F=4 into {cfg.total_params}): {lib_ms:.3f} ms")
+    del keys, rows
     print(f"[hash] stacking the two T=2^19 tables (torch.cat, "
           f"{4 * 4 * cfg.total_params / 2**20:.1f} MiB out): {cat_ms:.3f} ms "
           f"per field call")
@@ -564,6 +700,409 @@ def hash_kernels_phase(dev):
           f"level), the {dense} dense levels alone {coarse_ms:.3f} ms "
           f"({coarse_ms / dense * 1e3:.1f} us per level)")
     return [fwd, bwd]
+
+
+O_ARGV = ["synthetic", "-O", "--bound", "1.0", "--dt_gamma", "0",
+          "--min_near", "0.05", "--max_steps", "512", "--device", "cuda"]
+
+
+def ladder_phase(dev, tr7, ds, ws):
+    """Phases 11 and 12 -> the kernel-table row of ladder_plan (K4). tr7:
+    phase 7's trainer (its state is the trained teacher); ds: the 800x800
+    test split."""
+    from seal3d_tpu_torch.config import (build_options, build_train_config,
+                                         common_parser)
+    from seal3d_tpu_torch.data.rays import get_full_rays
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.ops.ladder import (ladder_plan, ladder_plan_plain,
+                                             pack_tables)
+    from seal3d_tpu_torch.render.renderer import march_flat
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    cli = common_parser("chip_smoke").parse_args(
+        O_ARGV + ["--workspace", os.path.join(ws, "ladder")])
+    trainers = {}
+    for on in (False, True):
+        t = Trainer(ngp, tr7.fcfg,
+                    dataclasses.replace(build_options(cli), tl_kernel=on),
+                    build_train_config(cli), dataset=ds, device=dev)
+        t.state = tr7.state
+        trainers[on] = t
+    t_on = trainers[True]
+    eo, chunk, st = t_on.eval_opts, t_on.cfg.eval_chunk, tr7.state
+    check(eo.tl_kernel_ok(t_on.cfg.eval_budget_per_ray, None)
+          and not trainers[False].eval_opts.tl_kernel_ok(
+              t_on.cfg.eval_budget_per_ray, None),
+          "the -O eval options do not take the ladder kernel")
+
+    # --- phase 11: K4 vs plain on the busiest chunk of test view 0
+    kw = dict(bound=eo.bound, min_near=eo.min_near, max_steps=eo.max_steps,
+              num_candidates=eo.num_candidates, group=eo.tl_group,
+              n_coarse=eo.coarse_steps, pool=eo.tl_pool)
+    cg = eo.num_candidates // eo.tl_group
+    rays = get_full_rays(torch.as_tensor(ds.poses[0], device=dev),
+                         t_on._intrinsics, ds.h, ds.w)
+    sel, _, _ = t_on._chunk_layout(ds.h, ds.w, chunk)
+    tables = pack_tables(st.occ.bitfield, eo.tl_pool)
+    aabb = t_on._march_aabb(st.occ.occ_aabb).to(torch.float32).contiguous()
+    full = [torch.as_tensor(s_, device=dev) for s_ in sel if (s_ >= 0).all()]
+    demand = [float(ladder_plan(rays["rays_o"][i], rays["rays_d"][i], *tables,
+                                aabb, **kw)[3].sum()) for i in full]
+    idx = full[int(np.argmax(demand))]
+    ro, rd = rays["rays_o"][idx].contiguous(), rays["rays_d"][idx].contiguous()
+    t0, far, keep, cnt = ladder_plan(ro, rd, *tables, aabb, **kw)
+    p0, pfar, pkeep, pcnt = ladder_plan_plain(ro, rd, *tables, aabb, **kw)
+    check(keep.dtype == torch.bool and keep.shape == (chunk, cg),
+          f"K4 keep is {keep.dtype} {tuple(keep.shape)}")
+    err_t = max(float((t0 - p0).abs().max()), float((far - pfar).abs().max()))
+    mismatch = float((keep != pkeep).float().mean())
+    fine, pfine = float(cnt.sum()), float(pcnt.sum())
+    err_c = abs(fine - pfine) / pfine
+    hit = int((t0 < 1e9).sum())
+    bucket = t_on._pick_bucket(chunk, int(fine), int(keep.sum()))
+    mf = march_flat(ro, rd, st.occ.bitfield,
+                    dataclasses.replace(eo, flat_frac=bucket), aabb, None,
+                    tables)
+    kept = int(mf.valid.sum())
+    ms, plain_ms = time_turns(
+        lambda: ladder_plan(ro, rd, *tables, aabb, **kw),
+        lambda: ladder_plan_plain(ro, rd, *tables, aabb, **kw))
+    plain_launches = count_launches(
+        lambda: ladder_plan_plain(ro, rd, *tables, aabb, **kw))
+    print(f"[k4] view 0, busiest chunk: N={chunk} rays ({hit} hit the box) "
+          f"CG={cg} g={eo.tl_group} n_coarse={eo.coarse_steps} pool="
+          f"{eo.tl_pool}: t0/far max_abs_err {err_t:.3e}, keep mismatch share "
+          f"{mismatch:.3e} ({int(keep.sum())} kept groups), demand "
+          f"{fine:.0f} vs plain {pfine:.0f} (rel {err_c:.3e}), fine repack "
+          f"keeps {kept} at bucket {bucket}")
+    print(f"[k4] kernel {ms:.4f} ms (1 launch) plain {plain_ms:.3f} ms "
+          f"({plain_launches} launches)")
+    check(err_t <= 1e-6, f"K4 t0/far disagree with plain: {err_t}")
+    check(mismatch <= 1e-3, f"K4 keep mismatch share {mismatch}")
+    check(err_c <= 1e-3, f"K4 demand {fine} vs plain {pfine}")
+    check(fine >= kept > 0, f"K4 demand {fine} < fine repack's {kept}")
+    # per hit ray ~30 operations per coarse step and ~25 per group, ~20 more
+    # per kept group (the 128^3 test); rays that miss the box need none
+    row = {"name": "ladder_plan", "route": "cuda",
+           "source": "seal3d_tpu_torch/csrc/ladder.cu",
+           "replaces": "seal3d_tpu/ops/pallas/ladder.py:230",
+           "launches": 0, "max_abs_err": err_t, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": None,
+           **bound(chunk * (24 + 12 + cg) + 24
+                   + sum(t.numel() for t in tables),
+                   hit * (eo.coarse_steps * 30 + cg * 25)
+                   + int(keep.sum()) * 20)}
+    del rays, mf
+
+    # --- phase 12: the 8 test views with and without K4
+    for on in (False, True):    # one warm-up view each way
+        trainers[on].render_image(ds.poses[0], ds.h, ds.w)
+        trainers[on].render_stats.clear()
+    ladder_plan.launches = 0
+    d_img = d_dep = 0.0
+    for vi in range(len(ds)):
+        off = trainers[False].render_image(ds.poses[vi], ds.h, ds.w)
+        on = trainers[True].render_image(ds.poses[vi], ds.h, ds.w)
+        d_img = max(d_img, float((on[0] - off[0]).abs().max()))
+        d_dep = max(d_dep, float((on[1] - off[1]).abs().max()))
+    launches = ladder_plan.launches
+    s_off = list(trainers[False].render_stats)
+    s_on = list(trainers[True].render_stats)
+    probes = len(sel) * len(ds)
+    rendered = sum(s_["chunks_rendered"] for s_ in s_on)
+    sec = {on: float(np.mean([s_["seconds"] for s_ in stats]))
+           for on, stats in ((False, s_off), (True, s_on))}
+    per_view = {on: count_launches(
+        lambda: trainers[on].render_image(ds.poses[0], ds.h, ds.w))
+        for on in (False, True)}
+    print(f"[k4 render] {len(ds)} views {ds.h}x{ds.w}, tl_kernel on vs off: "
+          f"image max diff "
+          f"{d_img:.3e}, depth max diff {d_dep:.3e}, samples "
+          f"{[s_['samples'] for s_ in s_on]}; K4 launches {launches} "
+          f"({probes} probes + {rendered} rendered chunks)")
+    print(f"[k4 render] s per view: off {sec[False]:.4f} on {sec[True]:.4f}; "
+          f"kernel launches for view 0: off {per_view[False]} on "
+          f"{per_view[True]}")
+    check(d_img <= 1e-5 and d_dep <= 1e-4,
+          f"the tl_kernel render differs: image {d_img} depth {d_dep}")
+    check([s_["samples"] for s_ in s_on] == [s_["samples"] for s_ in s_off],
+          "the tl_kernel render kept other sample counts")
+    check(all(s_["nonfinite"] == 0 for s_ in s_on), "non-finite pixels")
+    check(launches > 0 and launches == probes + rendered,
+          f"K4 launches {launches} != probes {probes} + chunks {rendered}")
+    row["launches"] = launches
+    return row
+
+
+def lookup_phase(dev):
+    """Phase 13 -> the kernel-table rows of multilevel_lookup_fwd and
+    multilevel_lookup_bwd (K5), timed at case (a) F=4; max_abs_err is the
+    largest over every case, each of which is checked."""
+    from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig, gather_encode,
+                                               hashgrid_encode,
+                                               lookup_indices)
+    from seal3d_tpu_torch.ops.lookup import (multilevel_lookup,
+                                             multilevel_lookup_bwd,
+                                             multilevel_lookup_bwd_plain,
+                                             multilevel_lookup_plain)
+
+    base = {"route": "cuda", "source": "seal3d_tpu_torch/csrc/lookup.cu",
+            "launches": 0, "max_abs_err": 0.0}
+    fwd = {"name": "multilevel_lookup_fwd",
+           "replaces": "seal3d_tpu/ops/pallas/lookup.py:104", **base}
+    bwd = {"name": "multilevel_lookup_bwd",
+           "replaces": "seal3d_tpu/ops/pallas/lookup.py:156", **base}
+    cases = [("3-D align_corners", dict(num_levels=16, log2_hashmap_size=15,
+                                        align_corners=True), 2**18, (4, 2)),
+             ("2-D background grid", dict(num_levels=4, log2_hashmap_size=19,
+                                          desired_resolution=2048,
+                                          input_dim=2), 2**20, (2,))]
+    rng = np.random.default_rng(13)
+    multilevel_lookup.launches = multilevel_lookup_bwd.launches = 0
+    drives = 0
+    counted = [0, 0]
+    for tag, kw, m, widths in cases:
+        cfg = HashGridConfig(backend="pallas", **kw)
+        levels, n_rows = cfg.num_levels, cfg.total_params
+        x = torch.from_numpy(rng.uniform(0, 1, (m, cfg.input_dim))
+                             .astype(np.float32)).to(dev)
+        for f in widths:
+            tab = torch.from_numpy(rng.uniform(-1, 1, (n_rows, f))
+                                   .astype(np.float32)).to(dev)
+            ct = torch.from_numpy(rng.uniform(-1, 1, (m, levels * f))
+                                  .astype(np.float32)).to(dev)
+            # the path: hashgrid_encode and its autograd backward
+            before = (multilevel_lookup.launches,
+                      multilevel_lookup_bwd.launches)
+            t = tab.clone().requires_grad_()
+            out = hashgrid_encode(t, x, cfg)
+            out.backward(ct)
+            counted[0] += multilevel_lookup.launches - before[0]
+            counted[1] += multilevel_lookup_bwd.launches - before[1]
+            drives += 1
+            tp = tab.clone().requires_grad_()
+            ref = gather_encode(tp, x, cfg).reshape(m, -1)
+            ref.backward(ct)
+            e_f = float((out.detach() - ref.detach()).abs().max())
+            e_b = float((t.grad - tp.grad).abs().max())
+            scale = float(tp.grad.abs().max())
+            del t, tp, out, ref, ct
+
+            # the kernels alone, on the indices the path hands them
+            with torch.no_grad():
+                idx, _ = lookup_indices(x, cfg)
+                n = idx.shape[1]
+                rows = (idx.to(torch.int64) + torch.arange(
+                    levels, device=dev)[:, None] * (n_rows // levels)
+                        ).reshape(-1)
+                g = torch.from_numpy(rng.uniform(-1, 1, (levels, n, f))
+                                     .astype(np.float32)).to(dev)
+                g2 = g.reshape(-1, f)
+                same = torch.equal(multilevel_lookup(tab, idx),
+                                   multilevel_lookup_plain(tab, idx))
+                f_ms, f_plain = time_turns(
+                    lambda: multilevel_lookup(tab, idx),
+                    lambda: multilevel_lookup_plain(tab, idx))
+                f_lib = time_ms(lambda: tab.index_select(0, rows))
+                gk = multilevel_lookup_bwd(g, idx, n_rows)
+                gp = multilevel_lookup_bwd_plain(g, idx, n_rows)
+                e_k = float((gk - gp).abs().max())
+                k_scale = float(gp.abs().max())
+                del gk, gp
+                b_ms, b_plain = time_turns(
+                    lambda: multilevel_lookup_bwd(g, idx, n_rows),
+                    lambda: multilevel_lookup_bwd_plain(g, idx, n_rows))
+                b_lib = time_ms(lambda: torch.zeros(
+                    (n_rows, f), device=dev).index_add_(0, rows, g2))
+            print(f"[k5] {tag} L={levels} T=2^{cfg.log2_hashmap_size} F={f} "
+                  f"M={m} ({levels * n} pairs): hashgrid_encode vs plain "
+                  f"gather fwd max_abs_err {e_f:.3e}, bwd max_abs_err "
+                  f"{e_b:.3e} (max |grad| {scale:.3e}, rel "
+                  f"{e_b / scale:.3e}); kernel alone fwd "
+                  f"{'bit-identical' if same else 'DIFFERS'}, bwd rel "
+                  f"{e_k / k_scale:.3e}")
+            print(f"[k5]   fwd kernel {f_ms:.3f} ms plain {f_plain:.3f} ms "
+                  f"index_select {f_lib:.3f} ms; bwd kernel {b_ms:.3f} ms "
+                  f"plain {b_plain:.3f} ms index_add_ {b_lib:.3f} ms")
+            check(e_f <= TOL, f"K5 fwd {tag} F={f} disagrees: {e_f}")
+            check(same, f"K5 fwd {tag} F={f}: kernel differs from plain")
+            check(e_b <= BWD_RTOL * scale,
+                  f"K5 bwd {tag} F={f} disagrees: {e_b} of {scale}")
+            check(e_k <= BWD_RTOL * k_scale,
+                  f"K5 bwd kernel {tag} F={f} disagrees: {e_k} of {k_scale}")
+            fwd["max_abs_err"] = max(fwd["max_abs_err"], e_f)
+            bwd["max_abs_err"] = max(bwd["max_abs_err"], e_b, e_k)
+            if "ms" not in fwd:
+                # idx 4 B and one row out per pair; the rows gathered, at
+                # most the whole table; no arithmetic but the row address
+                pairs = levels * n
+                fwd.update(ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
+                           **bound(pairs * (4 + 4 * f)
+                                   + 4 * f * min(pairs, n_rows), pairs))
+                bwd.update(ms=b_ms, plain_ms=b_plain, library_ms=b_lib,
+                           **bound(pairs * (4 + 4 * f) + 4 * f * n_rows,
+                                   pairs * f))
+            del tab, g, g2, idx, rows
+    print(f"[k5] launches through hashgrid_encode and its backward: forward "
+          f"{counted[0]}, backward {counted[1]} ({drives} calls)")
+    check(counted == [drives, drives],
+          f"K5 launches {counted} != hashgrid_encode calls {drives}")
+    fwd["launches"], bwd["launches"] = counted
+    return [fwd, bwd]
+
+
+def seal_phase(dev, ws, teacher_ckpt):
+    """Phase 14 -> (K1 forward launches, K1 backward launches, K4 launches)
+    of the bbox edit through the CLI and of the edited views' renders."""
+    from seal3d_tpu_torch import main_SealNeRF
+    from seal3d_tpu_torch.config import common_parser, load_dataset
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_bwd
+    from seal3d_tpu_torch.ops.hash_encode import hash_encode, hash_encode_bwd
+    from seal3d_tpu_torch.ops.ladder import ladder_plan
+    from seal3d_tpu_torch.seal.renderer import hack_bitfield
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    epochs, steps = SEAL_EPOCHS, SEAL_STEPS
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = O_ARGV + ["--H", "256", "--W", "256", "--seal_config",
+                     os.path.join(here, "seal_config_bbox"),
+                     "--teacher_ckpt", teacher_ckpt,
+                     "--pretraining_epochs", str(epochs), "--extra_epochs",
+                     str(steps), "--workspace", ws]
+    for fn in (halo_encode, halo_encode_bwd, hash_encode, hash_encode_bwd,
+               ladder_plan):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    st = main_SealNeRF.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    fwd, bwd = halo_encode.launches, halo_encode_bwd.launches
+    check(hash_encode.launches == 0 and hash_encode_bwd.launches == 0
+          and ladder_plan.launches == 0, "the -O edit launched other kernels")
+
+    for name in ("timer.json", "seal.json", "options.json"):
+        check(os.path.exists(os.path.join(ws, name)), f"{name} not written")
+    with open(os.path.join(ws, "timer.json")) as f:
+        timer = json.load(f)
+    losses = st.pretrain_losses
+    print(f"[seal] main_SealNeRF bbox edit at 256x256: {cli_s:.2f} s in all; "
+          f"pretrain loss {losses[0]:.5f} -> {losses[-1]:.5f} over "
+          f"{len(losses)} epochs")
+    check(len(losses) == epochs and losses[-1] < losses[0]
+          and np.all(np.isfinite(losses)), f"pretrain losses {losses}")
+    ds = st.dataset
+    check(ds.depths is not None and ds.images.dtype == np.uint8
+          and float(ds.depths.max()) > 0, "the proxied dataset has no depths")
+
+    # every field call went through K1: count them
+    shells = {k: (int(v["weight"].sum()), v["n_batches"])
+              for k, v in st.pretrain_data.items()}
+    queries = sum(-(-n // 2**18) for n, _ in shells.values())
+    batches = epochs * sum(nb for _, nb in shells.values())
+    grid = st.train_stats["grid_updates"]
+    n_full = sum(1 for full, _ in grid if full) + 2   # hacked start, restore
+    n_part = sum(1 for full, _ in grid if not full)
+    ps = st.proxy_stats
+    proxy_chunks = ps["chunks_grid"] + ps["chunks_packed"]
+    test_chunks = sum(s_["chunks_rendered"] for s_ in st.render_stats)
+    field_calls = (queries + batches + steps + 16 * n_full + 3 * n_part
+                   + proxy_chunks + test_chunks)
+    print(f"[seal] shells (points, batches) {shells}; K1 launches: backward "
+          f"{bwd} ({batches} pretrain batches + {steps} finetune steps), "
+          f"forward {fwd} (field calls {field_calls}: {queries} teacher "
+          f"queries, {batches} + {steps} steps, {n_full}x16 + {n_part}x3 "
+          f"grid-update chunks, {proxy_chunks} proxy chunks of {ps}, "
+          f"{test_chunks} test chunks)")
+    check(bwd == batches + steps, f"K1 bwd launches {bwd} != "
+                                  f"{batches + steps}")
+    check(fwd == field_calls, f"K1 fwd launches {fwd} != field calls "
+                              f"{field_calls}")
+    check(len(st.render_stats) == 8
+          and all(s_["nonfinite"] == 0 for s_ in st.render_stats),
+          "edited test views: count or non-finite pixels")
+
+    wall = (timer["pretrain_init"] + timer["pretraining_total"]
+            + timer["proxy_dataset"] + timer["training_total"])
+    ts = st.train_stats
+    print(f"[seal] init {timer['pretrain_init']:.3f} s, pretrain "
+          f"{timer['pretraining_avg']:.4f} s per epoch "
+          f"({timer['pretraining_total']:.2f} s), proxy "
+          f"{timer['proxy_dataset']:.3f} s for {ps['views']} views, finetune "
+          f"{timer['training_total']:.2f} s "
+          f"({ts['window_s'] / ts['window_steps'] * 1e3:.3f} ms per step "
+          f"after the first {steps - ts['window_steps']}, grid updates "
+          f"included; final flat_frac {st.opts.flat_frac}); shares of "
+          f"{wall:.2f} s: init {timer['pretrain_init'] / wall:.3f} pretrain "
+          f"{timer['pretraining_total'] / wall:.3f} proxy "
+          f"{timer['proxy_dataset'] / wall:.3f} finetune "
+          f"{timer['training_total'] / wall:.3f}")
+
+    # the edit took: student vs mapped teacher, unedited teacher vs the same
+    cli = common_parser("chip_smoke").parse_args(
+        O_ARGV + ["--H", "256", "--W", "256", "--workspace", ws])
+    val = load_dataset(cli, "val", device=dev)
+    plain_teacher = Trainer(ngp, st.fcfg, st.opts, st.cfg, dataset=val,
+                            device=dev, name="teacher_unedited")
+    plain_teacher.load_checkpoint(teacher_ckpt)
+    # whole images, and the pixels the edit changes: those where the mapped
+    # teacher's view differs from the unedited teacher's by > 0.1
+    ps_student, ps_teacher = [], []
+    n_px, se_student, se_teacher = 0, 0.0, 0.0
+    for pose in val.poses[:4]:
+        target, _ = st.render_teacher_view(pose, val.h, val.w)
+        edited = st.render_image(pose, val.h, val.w)[0]
+        unedited = plain_teacher.render_image(pose, val.h, val.w)[0]
+        ps_student.append(psnr(edited, target))
+        ps_teacher.append(psnr(unedited, target))
+        mask = (target - unedited).abs().amax(-1) > 0.1
+        n_px += int(mask.sum())
+        se_student += float(((edited - target) ** 2)[mask].sum())
+        se_teacher += float(((unedited - target) ** 2)[mask].sum())
+    check(n_px >= 100, f"the edit changes only {n_px} pixels of 4 val views")
+    edit_student = -10.0 * np.log10(se_student / (3 * n_px))
+    edit_teacher = -10.0 * np.log10(se_teacher / (3 * n_px))
+    print(f"[seal] 4 val poses against the mapped teacher: student "
+          f"{np.mean(ps_student):.2f} dB {[round(v, 2) for v in ps_student]}, "
+          f"unedited teacher {np.mean(ps_teacher):.2f} dB "
+          f"{[round(v, 2) for v in ps_teacher]}; on the {n_px} pixels the "
+          f"edit changes: student {edit_student:.2f} dB, unedited teacher "
+          f"{edit_teacher:.2f} dB")
+    check(np.mean(ps_student) >= MIN_EDIT_PSNR,
+          f"student PSNR {np.mean(ps_student):.2f} < {MIN_EDIT_PSNR}")
+    check(edit_teacher < edit_student,
+          "on the edited pixels the unedited teacher is as close to the "
+          "target as the student: the edit did not take")
+
+    forced = hack_bitfield(torch.zeros_like(st.state.occ.bitfield),
+                           st._hack_bytes, st._hack_masks)
+    bits = st.state.occ.bitfield
+    held = int((((bits & forced) == forced) & (forced != 0)).sum())
+    n_forced = int((forced != 0).sum())
+    print(f"[seal] after restore_grid {held} of {n_forced} force-filled "
+          f"bytes are still fully set")
+    check(n_forced > 0 and held < n_forced,
+          "restore_grid left the force-fill in the bitfield")
+
+    # the edited test views through K4
+    test = load_dataset(cli, "test", device=dev)
+    off = [st.render_image(p, test.h, test.w) for p in test.poses]
+    st.eval_opts = dataclasses.replace(st.eval_opts, tl_kernel=True)
+    before = len(st.render_stats)
+    on = [st.render_image(p, test.h, test.w) for p in test.poses]
+    st.eval_opts = dataclasses.replace(st.eval_opts, tl_kernel=False)
+    d_img = max(float((a[0] - b[0]).abs().max()) for a, b in zip(on, off))
+    d_dep = max(float((a[1] - b[1]).abs().max()) for a, b in zip(on, off))
+    n_chunks = -(-test.h * test.w // st.cfg.eval_chunk)
+    expect = len(test) * n_chunks + sum(
+        s_["chunks_rendered"] for s_ in st.render_stats[before:])
+    k4 = ladder_plan.launches
+    print(f"[seal] edited test views with K4 vs without: image max diff "
+          f"{d_img:.3e}, depth max diff {d_dep:.3e}; K4 launches {k4}")
+    check(d_img <= 1e-5 and d_dep <= 1e-4,
+          f"edited views differ with K4: {d_img} {d_dep}")
+    check(k4 > 0 and k4 == expect, f"K4 launches {k4} != {expect}")
+    return fwd, bwd, k4
 
 
 def pth_round_trip(tr, ws):

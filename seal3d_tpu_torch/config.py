@@ -18,9 +18,8 @@ def common_parser(desc: str) -> argparse.ArgumentParser:
                    help="scene dir (transforms*.json) or 'synthetic'")
     p.add_argument("-O", action="store_true",
                    help="fast mode: occupancy march + halo (K1) encoder")
-    p.add_argument("--device", type=str,
-                   default="cuda" if torch.cuda.is_available() else "cpu",
-                   help="torch device (default: cuda when available)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device: the card unless 'cpu' is given")
     p.add_argument("--workspace", type=str, default="workspace")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--test", action="store_true", help="test mode (no training)")
@@ -70,6 +69,29 @@ def common_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--save_mesh", action="store_true")
     p.add_argument("--mesh_resolution", type=int, default=256)
     return p
+
+
+def refuse_unported(args):
+    """Raise NotImplementedError, naming the ROADMAP.md item, for the CLI
+    options whose code is not ported yet; raise RuntimeError where the run
+    asks for the card (the default) and there is none."""
+    if (torch.device(args.device).type == "cuda"
+            and not torch.cuda.is_available()):
+        raise RuntimeError("no CUDA device (pass --device cpu to run the "
+                           "plain PyTorch versions on the CPU)")
+    item = None
+    if args.gui or args.save_mesh:
+        item = ("--gui and --save_mesh", "Other backends and families")
+    elif args.dense_render:
+        item = ("--dense_render", "1l eval")
+    elif (args.error_map or getattr(args, "clip_text", "")
+          or getattr(args, "rand_pose", -1) >= 0):
+        item = ("--error_map, --clip_text and --rand_pose", "Train step")
+    elif args.bound > 1 and not args.test:
+        item = ("training at bound > 1 (multi-cascade march)", "1l eval")
+    if item:
+        raise NotImplementedError(f"{item[0]}: not ported yet (ROADMAP.md "
+                                  f"Queue 1, '{item[1]}')")
 
 
 def build_options(args) -> RenderOptions:

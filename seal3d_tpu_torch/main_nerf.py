@@ -27,7 +27,7 @@ import sys
 
 from seal3d_tpu_torch.config import (build_options, build_train_config,
                                      common_parser, grid_defaults,
-                                     load_dataset)
+                                     load_dataset, refuse_unported)
 from seal3d_tpu_torch.models import ngp
 from seal3d_tpu_torch.models.ngp import NGPConfig
 from seal3d_tpu_torch.train import checkpoint as ckpt_io
@@ -35,27 +35,12 @@ from seal3d_tpu_torch.train.trainer import Trainer
 from seal3d_tpu_torch.train.video import write_test_outputs
 
 
-def _refuse_unported(args):
-    item = None
-    if args.gui or args.save_mesh:
-        item = ("--gui and --save_mesh", "Other backends and families")
-    elif args.dense_render:
-        item = ("--dense_render", "1l eval")
-    elif args.error_map or args.clip_text or args.rand_pose >= 0:
-        item = ("--error_map and CLIP-guided --rand_pose", "Train step")
-    elif args.bound > 1 and not args.test:
-        item = ("training at bound > 1 (multi-cascade march)", "1l eval")
-    if item:
-        raise NotImplementedError(f"{item[0]}: not ported yet (ROADMAP.md "
-                                  f"Queue 1, '{item[1]}')")
-
-
 def main(argv=None) -> Trainer:
     parser = common_parser("seal3d-tpu NGP NeRF (PyTorch port)")
     parser.add_argument("--clip_text", type=str, default="")
     parser.add_argument("--rand_pose", type=int, default=-1)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
+    refuse_unported(args)
     backend, log2t, gridtype = grid_defaults(args)
     fcfg = NGPConfig(bound=args.bound, log2_hashmap_size=log2t,
                      grid_backend=backend, gridtype=gridtype,

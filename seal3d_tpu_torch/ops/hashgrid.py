@@ -12,8 +12,9 @@ hand-written kernel (which runs the plain path on a CPU tensor):
   levels, the reference's T=2^19 capacity): K3 and K2, one kernel pair over
   both layouts (ops/hash_encode.py);
 - 'xla': the plain corner gather only, any gridtype.
-The 'pallas' backend's unfused branch (align_corners or input_dim != 3,
-the reference's K5) is not ported yet.
+Where the fused encode does not apply (align_corners or input_dim != 3) the
+'pallas' backend takes its unfused branch, as the reference does: corner
+indices and weights in PyTorch, the rows through K5 (ops/lookup.py).
 """
 
 from __future__ import annotations
@@ -215,12 +216,36 @@ def _check_halo(cfg: HashGridConfig):
                          "input_dim=3 and align_corners=False")
 
 
-def _check_pallas(cfg: HashGridConfig):
-    if cfg.input_dim != 3 or cfg.align_corners:
-        raise NotImplementedError(
-            "the 'pallas' backend's unfused branch (align_corners or "
-            "input_dim != 3: kernel K5) is not ported yet: ROADMAP.md "
-            "Queue 2, K5")
+def lookup_indices(xf: torch.Tensor, cfg: HashGridConfig):
+    """What the unfused branch hands the lookup kernel: (level-local rows
+    [L, M*2^dim] int32, corner weights [M, L, 2^dim] f32). Every level is
+    padded to T rows, so level l starts at row l*T."""
+    idx, w = corner_indices_weights(xf, cfg)            # [M, L, 2^dim]
+    offsets = torch.tensor([off for _, off, _, _, _ in cfg.level_params],
+                           dtype=torch.int64, device=xf.device)
+    idx_local = (idx - offsets[None, :, None]).permute(1, 0, 2) \
+        .reshape(cfg.num_levels, -1).to(torch.int32)
+    return idx_local, w
+
+
+def lookup_encode(table: torch.Tensor, xf: torch.Tensor,
+                  cfg: HashGridConfig) -> torch.Tensor:
+    """The 'pallas' backend's unfused branch -> [M, L, F]: corner indices
+    and weights here, level-local rows through the lookup kernel K5
+    (ops/lookup.py), the weighted corner sum here."""
+    from seal3d_tpu_torch.ops.lookup import multilevel_lookup
+
+    m, levels = xf.shape[0], cfg.num_levels
+    idx_local, w = lookup_indices(xf, cfg)
+    vals = multilevel_lookup(table, idx_local)          # [L, M*2^dim, F]
+    feats = vals.reshape(levels, m, 2**cfg.input_dim, table.shape[-1])
+    out = (feats * w.permute(1, 0, 2)[..., None]).sum(dim=2)
+    return out.permute(1, 0, 2)
+
+
+def _fused_ok(cfg: HashGridConfig) -> bool:
+    """Whether the 'pallas' backend takes its fused encode (K3)."""
+    return cfg.input_dim == 3 and not cfg.align_corners
 
 
 @cache
@@ -236,11 +261,16 @@ def backends() -> dict:
     def hash_kernel(table, xf, valid, cfg):
         return k3.hash_encode(table, xf, cfg)
 
+    def pallas_kernel(table, xf, valid, cfg):
+        if _fused_ok(cfg):
+            return k3.hash_encode(table, xf, cfg)
+        return lookup_encode(table, xf, cfg)
+
     return {
         "xla": Backend(lambda t, xf, v, c: gather_encode(t, xf, c), None,
                        _takes_any),
         "halo": Backend(k1.halo_encode_plain, k1.halo_encode, _check_halo),
-        "pallas": Backend(hash_plain, hash_kernel, _check_pallas),
+        "pallas": Backend(hash_plain, pallas_kernel, _takes_any),
         "bucket": Backend(hash_plain, hash_kernel, _takes_any),
     }
 

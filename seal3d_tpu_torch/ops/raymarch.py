@@ -1,6 +1,7 @@
 """Occupancy-grid ray marching (port of seal3d_tpu/ops/raymarch.py): the
 single-level train march (candidate ladder, `[N, K]` grid and flat packed
-layouts) and the two-level eval march.
+layouts) and the two-level eval march, whose level 1 can come from the
+ladder kernel K4 (`ladder_plan_kernel`, `march_rays_flat_2level_kernel`).
 
 The march keeps the reference's static-shape design (fixed candidate ladder,
 occupancy tests as gathers, packing by one sort of unique flat-index keys,
@@ -311,6 +312,54 @@ def march_rays_flat_2level(rays_o, rays_d, bitfield, bound: float,
                       num_candidates=num_candidates, group=group,
                       perturb=perturb, min_near=min_near, aabb=aabb,
                       coarse_steps=coarse_steps, kg=kg, pool=pool)
+    budget_g = max(-(-int(round(budget * over)) // (group * 16)) * 16, 16)
+    return pack_groups_expand_fine(plan, plan.keep, 0, rays_o, rays_d,
+                                   bitfield, bound, cascades, group, budget,
+                                   budget_g, occ_stride)
+
+
+def ladder_plan_kernel(rays_o, rays_d, bitfield, bound: float, max_steps: int,
+                       num_candidates: int, group: int, min_near: float,
+                       aabb: Optional[torch.Tensor], coarse_steps: int,
+                       pool: int = 64, tables=None):
+    """(GroupPlan, fine_cnt [N] f32) through the fused ladder kernel K4
+    (ops/ladder.py) in place of near_far_from_aabb + coarse_tighten +
+    group_plan: kg = -1, no jitter, single cascade, occ_stride == group
+    (callers gate: RenderOptions.tl_kernel_ok). fine_cnt is an upper bound
+    of each ray's fine repack demand. `tables` is `pack_tables(bitfield,
+    pool)` where the caller built it once for many chunks."""
+    from seal3d_tpu_torch.ops.ladder import ladder_plan, pack_tables
+
+    if aabb is None:
+        aabb = torch.tensor([-bound] * 3 + [bound] * 3, dtype=torch.float32,
+                            device=rays_o.device)
+    if tables is None:
+        tables = pack_tables(bitfield, pool=pool)
+    t0, fars, keep, cnt = ladder_plan(
+        rays_o.contiguous(), rays_d.contiguous(), *tables, aabb, bound=bound,
+        min_near=min_near, max_steps=max_steps, num_candidates=num_candidates, group=group,
+        n_coarse=coarse_steps, pool=pool)
+    stride = torch.ones((rays_o.shape[0],), dtype=torch.int64,
+                        device=rays_o.device)
+    return GroupPlan(t0=t0, fars=fars, stride=stride, keep=keep,
+                     dt_min=2.0 * SQRT3 / max_steps), cnt
+
+
+def march_rays_flat_2level_kernel(rays_o, rays_d, bitfield, bound: float,
+                                  cascades: int, max_steps: int, k: int,
+                                  budget: int, num_candidates: int,
+                                  min_near: float = 0.05,
+                                  aabb: Optional[torch.Tensor] = None,
+                                  occ_stride: int = 4, coarse_steps: int = 32,
+                                  group: int = 4, over: float = 1.5,
+                                  pool: int = 64, tables=None) -> MarchedRays:
+    """march_rays_flat_2level with its level 1 (the group plan) from the
+    ladder kernel K4; pack, expand and repack are unchanged."""
+    if cascades != 1:
+        raise ValueError("the two-level march is single-cascade")
+    plan, _ = ladder_plan_kernel(rays_o, rays_d, bitfield, bound, max_steps,
+                                 num_candidates, group, min_near, aabb,
+                                 coarse_steps, pool, tables=tables)
     budget_g = max(-(-int(round(budget * over)) // (group * 16)) * 16, 16)
     return pack_groups_expand_fine(plan, plan.keep, 0, rays_o, rays_d,
                                    bitfield, bound, cascades, group, budget,

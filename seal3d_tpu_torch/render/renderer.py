@@ -2,7 +2,8 @@
 
 `render_rays` marches a ray batch, queries the field once on the samples and
 composites them. Its branches, as in the reference: the packed flat branch
-(flat_frac < 1) with the two-level march (the -O eval and full-image point)
+(flat_frac < 1) with the two-level march (the -O eval and full-image point;
+with `tl_kernel` its group plan comes from the ladder kernel K4)
 or the single-level march (the -O train point once the adaptive budget has
 picked a bucket), and the [N, K] grid branch (flat_frac None: the train
 steps before the first budget retune). The transmittance-terminated rounds,
@@ -23,6 +24,7 @@ from seal3d_tpu_torch.ops.composite import composite_dense, composite_flat
 from seal3d_tpu_torch.ops.raymarch import (SQRT3, MarchedRays,
                                            march_rays_flat,
                                            march_rays_flat_2level,
+                                           march_rays_flat_2level_kernel,
                                            march_rays_grid)
 
 
@@ -99,15 +101,23 @@ def flat_budget(n: int, opts: RenderOptions) -> int:
 
 def march_flat(rays_o, rays_d, bitfield, opts: RenderOptions,
                aabb: torch.Tensor,
-               jitter: Optional[torch.Tensor] = None) -> MarchedRays:
+               jitter: Optional[torch.Tensor] = None,
+               ladder_tables=None) -> MarchedRays:
     """The packed sample buffer the flat branch of `render_rays` feeds the
-    field: the two-level march where `two_level_ok` (the eval point), else
-    the single-level march (the train point)."""
+    field: the two-level march where `two_level_ok` (the eval point), its
+    level 1 from the ladder kernel K4 where `tl_kernel_ok`; else the
+    single-level march (the train point). `ladder_tables`: the kernel's
+    `pack_tables(bitfield, opts.tl_pool)`, where the caller has built it."""
     k = opts.budget_per_ray
     budget = flat_budget(rays_o.shape[0], opts)
     if opts.tl_kernel_ok(k, jitter):
-        raise _not_ported("the ladder kernel K4 (RenderOptions.tl_kernel)",
-                          "Other backends and families")
+        return march_rays_flat_2level_kernel(
+            rays_o, rays_d, bitfield, bound=opts.bound,
+            cascades=opts.cascades, max_steps=opts.max_steps, k=k,
+            budget=budget, num_candidates=opts.num_candidates,
+            min_near=opts.min_near, aabb=aabb, occ_stride=opts.occ_stride,
+            coarse_steps=opts.coarse_steps, group=opts.tl_group,
+            over=opts.tl_over, pool=opts.tl_pool, tables=ladder_tables)
     if opts.two_level_ok(k):
         return march_rays_flat_2level(
             rays_o, rays_d, bitfield, bound=opts.bound,
@@ -133,7 +143,7 @@ def march_flat(rays_o, rays_d, bitfield, opts: RenderOptions,
 def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
                 opts: RenderOptions, bg_color=1.0,
                 aabb: Optional[torch.Tensor] = None,
-                jitter: Optional[torch.Tensor] = None):
+                jitter: Optional[torch.Tensor] = None, ladder_tables=None):
     """Occupancy-grid fast path over a ray batch, differentiable in params.
 
     field: a module with `apply(params, cfg, x, d, valid=)` (models.ngp).
@@ -141,7 +151,7 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
     jitter: [N] uniforms in [0, 1) that perturb each ray's march start (the
     reference's `perturb=True`, whose numbers it draws from `key`), or None.
     flat_frac None (or >= 1) selects the [N, K] grid branch, else the packed
-    flat branch (march_flat).
+    flat branch (march_flat, which takes `ladder_tables`).
     Returns dict(image [N, 3], depth [N], weights_sum [N], num_samples []).
     """
     n = rays_o.shape[0]
@@ -158,7 +168,8 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
         aabb = torch.tensor(opts.aabb, dtype=torch.float32, device=rays_o.device)
     if opts.flat_frac is not None and opts.flat_frac < 1.0:
         with record_function("render.march"):
-            mf = march_flat(rays_o, rays_d, bitfield, opts, aabb, jitter)
+            mf = march_flat(rays_o, rays_d, bitfield, opts, aabb, jitter,
+                            ladder_tables)
         with record_function("render.field"):
             sigma, rgb = field.apply(params, cfg, mf.xyzs, mf.dirs,
                                      valid=mf.valid)

@@ -31,7 +31,9 @@ import torch
 from torch.profiler import record_function
 
 from seal3d_tpu_torch.data.rays import get_full_rays, get_rays
-from seal3d_tpu_torch.ops.raymarch import group_plan, occupancy_at
+from seal3d_tpu_torch.ops.ladder import pack_tables
+from seal3d_tpu_torch.ops.raymarch import (group_plan, ladder_plan_kernel,
+                                           march_rays_grid, occupancy_at)
 from seal3d_tpu_torch.render.occupancy import (OccupancyState, mark_untrained,
                                                occupancy_init,
                                                occupancy_update)
@@ -151,7 +153,12 @@ class Trainer:
         self.opts = opts
         self.cfg = cfg
         self.name = name
-        self.device = torch.device(device if device is not None else "cpu")
+        # None means the card; only an explicit "cpu" runs on the CPU
+        self.device = torch.device(device if device is not None else "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Trainer: no CUDA device (pass device='cpu' to run the plain "
+                "PyTorch versions on the CPU)")
         # params are drawn on the CPU (same numbers on every device); the
         # step and occupancy randomness on the device itself
         self.init_generator = torch.Generator().manual_seed(seed)
@@ -200,6 +207,10 @@ class Trainer:
                                            dtype=torch.float32, device=dev)
         self._images = (None if dataset.images is None else
                         torch.as_tensor(dataset.images, device=dev))
+        # teacher-proxied depths of a Seal dataset: the loss's depth term
+        self._depths = (None if dataset.depths is None else
+                        torch.as_tensor(dataset.depths, dtype=torch.float32,
+                                        device=dev))
 
     def init_state(self) -> TrainState:
         params = self.field.init(self.fcfg, generator=self.init_generator)
@@ -244,19 +255,25 @@ class Trainer:
             bg = torch.ones((n, 3), dtype=torch.float32, device=gt.device)
         if gt.shape[-1] == 4:
             gt = gt[:, :3] * gt[:, 3:] + bg * (1.0 - gt[:, 3:])
-        return {"rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
-                "gt": gt, "bg": bg}
+        batch = {"rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
+                 "gt": gt, "bg": bg}
+        if self._depths is not None:
+            batch["gt_depth"] = self._depths[rand.img_idx].reshape(-1)[rand.inds]
+        return batch
 
     def loss_fn(self, params, occ: OccupancyState, batch: dict,
                 jitter: Optional[torch.Tensor]):
-        """(loss [], render dict) of one batch: the mean of the per-ray MSE
-        over RGB. (The reference's depth term serves the Seal datasets'
-        teacher depths: ROADMAP.md Queue 1, 'Seal editing'.)"""
+        """(loss [], render dict) of one batch: the mean over rays of the
+        MSE over RGB plus, where the batch carries `gt_depth` (a
+        teacher-proxied Seal dataset), the squared depth error."""
         out = render_rays(params, self.field, self.fcfg, occ.bitfield,
                           batch["rays_o"], batch["rays_d"], self.opts,
                           bg_color=batch["bg"],
                           aabb=self._march_aabb(occ.occ_aabb), jitter=jitter)
-        return ((out["image"] - batch["gt"]) ** 2).mean(-1).mean(), out
+        per_ray = ((out["image"] - batch["gt"]) ** 2).mean(-1)
+        if "gt_depth" in batch:
+            per_ray = per_ray + (out["depth"] - batch["gt_depth"]) ** 2
+        return per_ray.mean(), out
 
     def loss_and_grads(self, params, occ: OccupancyState, batch: dict,
                        jitter: Optional[torch.Tensor]):
@@ -335,10 +352,9 @@ class Trainer:
             if step_i % cfg.update_grid_interval == 0:
                 full = iter_density < cfg.full_grid_updates
                 a = clock.mark()
-                self.update_grid(full=full)
+                self._grid_update_fns()[0 if full else 1]()
                 grid_marks.append((full, a, clock.mark()))
                 iter_density += 1
-                self._post_grid_update()
                 # from scratch, retuning waits out the full-update phase
                 if cfg.adaptive_budget and (cfg.retune_warm or not full):
                     self._retune_budget()
@@ -361,9 +377,38 @@ class Trainer:
         }
         return last
 
-    def _post_grid_update(self):
-        """Hook after each occupancy refresh (Seal re-applies its bitfield
-        hack here)."""
+    def _grid_update_fns(self):
+        """The (full, partial) occupancy refreshes the train loop runs;
+        SealTrainer overrides them with refreshes that re-apply its bitfield
+        hack."""
+        return (lambda: self.update_grid(full=True),
+                lambda: self.update_grid(full=False))
+
+    @torch.no_grad()
+    def _seed_mean_count_probe(self, n_views: int = 4):
+        """Seed occ.mean_count with a march-only measurement: cfg.num_rays
+        rays from each of a few dataset poses marched against the current
+        bitfield at the train point, kept samples counted (no field, no
+        step). A warm start can then pick its flat_frac bucket before the
+        first train step. The pixels come from the trainer's generator."""
+        st, opts = self.state, self.opts
+        n = min(n_views, self._poses.shape[0])
+        h, w = self.dataset.h, self.dataset.w
+        total = []
+        for i in range(n):
+            rays = get_rays(self._poses[i * len(self.dataset) // n],
+                            self._intrinsics, h, w, self.cfg.num_rays,
+                            generator=self.generator)
+            m = march_rays_grid(
+                rays["rays_o"], rays["rays_d"], st.occ.bitfield, opts.bound,
+                opts.cascades, opts.dt_gamma, opts.max_steps,
+                opts.budget_per_ray, num_candidates=opts.num_candidates,
+                min_near=opts.min_near,
+                aabb=self._march_aabb(st.occ.occ_aabb),
+                occ_stride=opts.occ_stride, coarse_steps=opts.coarse_steps)
+            total.append(m.valid.sum())
+        mean = torch.stack(total).sum().to(torch.float32) / n
+        self.state = st._replace(occ=st.occ._replace(mean_count=mean))
 
     def _retune_budget(self):
         """Pick the flat_frac bucket matching the measured valid-sample
@@ -458,12 +503,25 @@ class Trainer:
         return out
 
     def _eval_demand(self, bitfield, rays_o, rays_d, occ_aabb,
-                     n_valid: int) -> torch.Tensor:
+                     n_valid: int, ladder_tables=None) -> torch.Tensor:
         """[2] int64 (fine sample demand, kept-group demand) of one chunk,
         pad rays at index >= n_valid masked out. Closed form at group
         granularity: occupied group reps x members inside the tightened
-        interval, an upper bound of the fine repack's kept members."""
+        interval, an upper bound of the fine repack's kept members. Where
+        the eval options take the ladder kernel K4 (`tl_kernel_ok`), the
+        two counts are sums of its outputs."""
         eo = self.eval_opts
+        if self._eval_tl_uncapped and eo.tl_kernel_ok(
+                self.cfg.eval_budget_per_ray, None):
+            plan, cnt = ladder_plan_kernel(
+                rays_o, rays_d, bitfield, eo.bound, eo.max_steps,
+                eo.num_candidates, eo.tl_group, eo.min_near,
+                self._march_aabb(occ_aabb), eo.coarse_steps, eo.tl_pool,
+                tables=ladder_tables)
+            rok = torch.arange(rays_o.shape[0], device=rays_o.device) < n_valid
+            return torch.stack([
+                torch.where(rok, cnt, 0.0).sum().to(torch.int64),
+                (plan.keep & rok[:, None]).sum()])
         if not (self._eval_tl_uncapped and eo.occ_stride == eo.tl_group
                 and eo.coarse_steps > 0):
             raise NotImplementedError(
@@ -532,6 +590,10 @@ class Trainer:
         rd_c = torch.where(slot_ok, rays["rays_d"][selt],
                            torch.tensor([1.0, 0.0, 0.0], device=dev))
         aabb = self._march_aabb(st.occ.occ_aabb)
+        # the ladder kernel's views of the bitfield, once for all chunks
+        tables = None
+        if self.eval_opts.tl_kernel_ok(self.cfg.eval_budget_per_ray, None):
+            tables = pack_tables(st.occ.bitfield, self.eval_opts.tl_pool)
 
         buckets = [self.cfg.eval_flat_frac] * n_chunks
         skip = [False] * n_chunks
@@ -539,7 +601,7 @@ class Trainer:
             # all chunks' demands, then ONE device -> host copy
             cnts = torch.stack([
                 self._eval_demand(st.occ.bitfield, ro_c[ci], rd_c[ci],
-                                  st.occ.occ_aabb, int(nv[ci]))
+                                  st.occ.occ_aabb, int(nv[ci]), tables)
                 for ci in range(n_chunks)]).cpu().numpy()
             for ci in range(n_chunks):
                 fine, grp = int(cnts[ci, 0]), int(cnts[ci, 1])
@@ -558,7 +620,8 @@ class Trainer:
                 continue
             opts = dataclasses.replace(self.eval_opts, flat_frac=buckets[ci])
             out = render_rays(params, self.field, self.fcfg, st.occ.bitfield,
-                              ro_c[ci], rd_c[ci], opts, bg_color=bg, aabb=aabb)
+                              ro_c[ci], rd_c[ci], opts, bg_color=bg, aabb=aabb,
+                              ladder_tables=tables)
             imgs.append(out["image"])
             deps.append(out["depth"])
             samples.append(out["num_samples"])

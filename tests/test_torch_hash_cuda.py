@@ -145,7 +145,8 @@ def test_hash_kernels_refuse_what_they_do_not_take(cuda_device):
 @pytest.mark.parametrize("backend", sorted(LAYOUTS))
 def test_hashgrid_encode_dispatches_to_the_kernel(cuda_device, backend):
     """hashgrid_encode on a CUDA tensor launches the kernel and agrees with
-    the plain path; the 'pallas' unfused branch (K5) still raises."""
+    the plain path; the 'pallas' unfused branch goes through K5 (the lookup
+    kernel), not the hash-encode kernel."""
     cfg = HashGridConfig(num_levels=4, log2_hashmap_size=12, backend=backend)
     tab = torch.rand((cfg.total_params, 2), device=cuda_device)
     x = torch.rand((100, 3), device=cuda_device)
@@ -156,6 +157,12 @@ def test_hashgrid_encode_dispatches_to_the_kernel(cuda_device, backend):
     assert float((out - ref).abs().max()) <= 1e-5
     k5 = HashGridConfig(num_levels=4, log2_hashmap_size=12, backend="pallas",
                         align_corners=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hashgrid_encode(torch.rand((k5.total_params, 2), device=cuda_device),
-                        x, k5)
+    from seal3d_tpu_torch.ops.lookup import multilevel_lookup
+
+    tab5 = torch.rand((k5.total_params, 2), device=cuda_device)
+    before, before5 = hash_encode.launches, multilevel_lookup.launches
+    out5 = hashgrid_encode(tab5, x, k5)
+    assert hash_encode.launches == before
+    assert multilevel_lookup.launches == before5 + 1
+    ref5 = hash_encode_plain(tab5, x, k5).reshape(100, -1)
+    assert float((out5 - ref5).abs().max()) <= 1e-5

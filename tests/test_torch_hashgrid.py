@@ -132,12 +132,26 @@ def test_halo_plain_gradient_matches_oracle_gradient():
 
 
 def test_unported_backends_raise():
-    """The 'pallas' backend's unfused branch (align_corners: kernel K5)."""
-    _, tc = _cfgs(log2_hashmap_size=12, num_levels=2, backend="pallas",
-                  align_corners=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thg.hashgrid_encode(torch.zeros(tc.total_params, 2),
-                            torch.rand(4, 3), tc)
+    """Every backend of the reference is ported: the 'pallas' backend's
+    unfused branch (align_corners: kernel K5), the last to raise, now
+    encodes and agrees with the JAX `xla` backend of the same geometry
+    (1e-5; tests/test_torch_lookup.py holds the gradients too). What still
+    raises is level-sharded tensor parallelism and an unknown backend."""
+    kw = dict(log2_hashmap_size=12, num_levels=2, align_corners=True)
+    jc, tc = _cfgs(backend="pallas", **kw)
+    jx, _ = _cfgs(backend="xla", **kw)
+    tab, x = _inputs(f=2, total=tc.total_params, seed=6)
+    out = thg.hashgrid_encode(torch.from_numpy(tab), torch.from_numpy(x), tc)
+    native = thg.convert_table_layout(torch.from_numpy(tab), tc,
+                                      thg.HashGridConfig(backend="xla", **kw))
+    ref = jhg.hashgrid_encode(jnp.asarray(native.numpy()), jnp.asarray(x), jx)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    with pytest.raises(NotImplementedError, match="Not to port"):
+        thg.hashgrid_encode(torch.from_numpy(tab), torch.from_numpy(x),
+                            thg.HashGridConfig(shard_levels=True, **kw))
+    with pytest.raises(ValueError, match="unknown grid backend"):
+        thg.hashgrid_encode(torch.from_numpy(tab), torch.from_numpy(x),
+                            thg.HashGridConfig(backend="nope", **kw))
 
 
 def test_kernel_refuses_unsupported_device():

@@ -10,6 +10,7 @@ SyntheticScene, so the comparison checks the grid logic, not a field.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from seal3d_tpu.data.provider import rand_poses
@@ -18,6 +19,17 @@ from seal3d_tpu.ops.bitfield import GRID_CELLS
 from seal3d_tpu.render import occupancy as jocc
 from seal3d_tpu_torch.data.synthetic import SyntheticScene as TScene
 from seal3d_tpu_torch.render import occupancy as tocc
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once. PyTorch's default
+    of one intra-op thread per core in each of them oversubscribes the
+    machine, and these CPU runs then take ten times as long."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _prior_grid(seed=0):

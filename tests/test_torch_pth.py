@@ -30,6 +30,17 @@ from seal3d_tpu_torch.train import checkpoint as tckpt
 from seal3d_tpu_torch.train.checkpoint import flatten_tree, params_from_jax
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once. PyTorch's default
+    of one intra-op thread per core in each of them oversubscribes the
+    machine, and these CPU runs then take ten times as long."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(backend):
     kw = dict(bound=1.0, log2_hashmap_size=14, grid_backend=backend)
     return jngp.NGPConfig(**kw), tngp.NGPConfig(**kw)

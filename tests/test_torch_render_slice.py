@@ -35,6 +35,17 @@ from seal3d_tpu_torch.train.checkpoint import params_from_jax
 from seal3d_tpu_torch.train.trainer import TrainConfig as TCfg
 from seal3d_tpu_torch.train.trainer import Trainer as TTrainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once. PyTorch's default
+    of one intra-op thread per core in each of them oversubscribes the
+    machine, and these CPU runs then take ten times as long."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 OPTS = dict(bound=1.0, dt_gamma=0.0, max_steps=512, num_candidates=256,
             coarse_steps=64, occ_stride=4, min_near=0.05)
 TCFG = dict(eval_chunk=256, eval_budget_per_ray=48, eval_flat_frac=0.5,
@@ -66,7 +77,7 @@ def _trainers(scene, backend, gridtype):
     tds = NeRFDataset(poses=ds.poses, images=ds.images,
                       intrinsics=ds.intrinsics, h=ds.h, w=ds.w)
     ttr = TTrainer(tngp, tngp.NGPConfig(**kw), TOpts(**OPTS), TCfg(**TCFG),
-                   dataset=tds)
+                   dataset=tds, device="cpu")
     ttr.init_state()
     ttr.state = ttr.state._replace(
         ema_params=params_from_jax(jax.tree.map(np.asarray, ema)),

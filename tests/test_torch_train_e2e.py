@@ -31,6 +31,17 @@ from seal3d_tpu_torch.train import checkpoint as tckpt
 from seal3d_tpu_torch.train.trainer import TrainConfig as TCfg
 from seal3d_tpu_torch.train.trainer import Trainer as TTrainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes at once. PyTorch's default
+    of one intra-op thread per core in each of them oversubscribes the
+    machine, and these CPU runs then take ten times as long."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
 ARGV = ["synthetic", "-O", "--bound", "1.0", "--dt_gamma", "0", "--min_near",
         "0.05", "--max_steps", "512", "--iters", "64", "--H", "24", "--W",
         "24", "--num_rays", "256", "--log2_hashmap_size", "12", "--device",
@@ -49,7 +60,7 @@ def test_cli_trains_and_psnr_rises(tmp_path, monkeypatch):
     args = common_parser("t").parse_args(ARGV + ["--workspace", ws])
     val = load_dataset(args, "val", device="cpu")
     base = TTrainer(tngp, tngp.NGPConfig(**SMALL), build_options(args),
-                    build_train_config(args), dataset=val)
+                    build_train_config(args), dataset=val, device="cpu")
     base.init_state()
     psnr0 = base.evaluate(val)
 
@@ -88,7 +99,7 @@ def test_cli_trains_bucket_backend(tmp_path, monkeypatch):
     cfg = tngp.NGPConfig(bound=1.0, log2_hashmap_size=12, num_levels=4,
                          grid_backend="bucket")
     base = TTrainer(tngp, cfg, build_options(args), build_train_config(args),
-                    dataset=val)
+                    dataset=val, device="cpu")
     base.init_state()
     psnr0 = base.evaluate(val)
 
@@ -139,7 +150,7 @@ def test_jax_full_checkpoint_resumes_in_port(tmp_path, capsys):
     jckpt.save_state(path, jst, full=True)
     ds = TScene().make_dataset(n_views=2, h=16, w=16)
     tr = TTrainer(tngp, tngp.NGPConfig(**SMALL), TOpts(bound=1.0),
-                  TCfg(max_steps=100, num_rays=64), dataset=ds)
+                  TCfg(max_steps=100, num_rays=64), dataset=ds, device="cpu")
     tr.init_state()
     capsys.readouterr()
     tr.load_checkpoint(path)
@@ -163,7 +174,7 @@ def test_port_checkpoint_loads_into_jax_template(tmp_path, capsys):
     no missing key and every leaf equal (optax state included)."""
     jtr, jst = _jax_state_with_moments(seed=1)
     tr = TTrainer(tngp, tngp.NGPConfig(**SMALL), TOpts(bound=1.0),
-                  TCfg(max_steps=100))
+                  TCfg(max_steps=100), device="cpu")
     tr.init_state()
     tr.state = tckpt.state_from_arrays(
         {jckpt._path_str(p): np.asarray(v) for p, v in
