@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (seal3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--workspace DIR]
+    python3 chip_smoke.py [--workspace DIR] [--k1-baseline FILE.cu ...]
 
 Phases, each of which raises (exit code != 0) when it fails:
 1. print the card (nvidia-smi name and power limit) and build the CUDA
@@ -22,10 +22,11 @@ Phases, each of which raises (exit code != 0) when it fails:
 5. the card's render of a 64x64 view against the same render on the CPU
    through the plain version (a reference on a small input);
 6. K1's backward (halo_encode_bwd) against its plain PyTorch version at the
-   -O widths (L=16, T=2^15, F=4 and F=2): M=196,608 (one [N, K] train
-   step, 4096 rays x 48) all valid, and M=2^20 with 25% invalid rows. The
-   table gradient within BWD_RTOL of its largest entry, invalid rows adding
-   nothing; both times from CUDA events;
+   -O widths (L=16, T=2^15, F=4 and F=2) on random points: M=196,608 (one
+   [N, K] train step, 4096 rays x 48) all valid, and M=2^20 with 25% invalid
+   rows. The table gradient within BWD_RTOL of its largest entry, invalid
+   rows adding nothing; both times from CUDA events (phase 16 times the
+   kernel-table row, on a real step's samples);
 7. the train path at full -O width through the port's CLI (`python -m
    seal3d_tpu_torch.main_nerf synthetic -O --bound 1.0 --dt_gamma 0
    --min_near 0.05 --max_steps 512 --iters 576 --H 256 --W 256`): the loss
@@ -86,7 +87,30 @@ Phases, each of which raises (exit code != 0) when it fails:
    restore_grid the bitfield no longer holds the force-fill; the edited
    test views through K4 equal those without. Prints pretrain s per epoch,
    proxy s, finetune ms per step and each stage's share of the wall.
-The line before the last is the kernel table as JSON (seven kernels, each
+15. K1 over a level range, the per-shard program of the level-sharded
+   encode, on the card at the -O widths (L=16, T=2^15, F=4), on 2^20 random
+   points and on phase 4's real chunk: `halo_encode_sharded` with (model,
+   data) in {(2, 1), (4, 1), (8, 1), (4, 2)}, forward bit-identical to
+   `halo_encode`, table gradient within BWD_RTOL of the whole gradient's
+   largest entry; every shard program a counted launch. Then the 4 shards of
+   model=4 on the real chunk, each writing its columns of the full [M, 16, 4]
+   tensor, against their plain versions (<= 1e-5), timed beside the whole
+   encode;
+16. K1 where the main path runs it: forward and backward, whole and level by
+   level (16 one-level launches), on the packed samples of one more train
+   step of phase 7's trained state (x, valid and cotangent as the step hands
+   them to the kernels), on random points of the same count, on phase 4's
+   chunk, on the first pretraining batch of phase 14 (2^19 shell points) and
+   on 2^20 random points. Forward <= 1e-5 of plain; backward against the
+   plain version fed a float64 cotangent, within BWD_RTOL of the largest
+   entry (the fp32 plain version itself strays further on the Seal batch,
+   whose thousands of terms per coarse row cancel). Times are device times
+   (calls replayed from a CUDA graph). With --k1-baseline FILE.cu, other
+   versions of csrc/halo_encode.cu (an earlier commit's: `git show
+   <commit>:seal3d_tpu_torch/csrc/halo_encode.cu`) are built beside the
+   tree's, must give the bit-identical forward, and are timed on the same
+   cases in turns.
+The line before the last is the kernel table as JSON (eight kernels, each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
 computes the same function, that call's time); the last line is
@@ -95,6 +119,8 @@ the script exits non-zero before printing any result.
 """
 
 import argparse
+import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -140,6 +166,19 @@ def time_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_device_ms(fn, iters: int = 20) -> float:
+    """Mean device ms per call: `iters` calls captured into one CUDA graph
+    and replayed, so the gaps the host leaves between short launches do not
+    count (a K1 launch through its wrapper costs the host ~50 us)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return time_ms(graph.replay, 5) / iters
 
 
 def time_turns(kernel, plain):
@@ -219,6 +258,12 @@ def main(argv=None):
     ap.add_argument("--workspace", default=None,
                     help="keep checkpoint and renders here (default: a "
                          "temporary directory, removed at exit)")
+    ap.add_argument("--k1-baseline", action="append", default=[],
+                    metavar="FILE.cu",
+                    help="another version of csrc/halo_encode.cu with the "
+                         "same C entries (an earlier commit's, say): built "
+                         "beside the tree's and timed on the same K1 cases "
+                         "in turns (phase 16); may be given more than once")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (this script has no CPU "
@@ -244,11 +289,14 @@ def main(argv=None):
 
     with tempfile.TemporaryDirectory() as tmp:
         ws = args.workspace or tmp
-        k1_fwd, ds800 = run_phases(dev, ws)
+        k1_fwd, ds800, chunk = run_phases(dev, ws)
         k1_bwd = k1_bwd_phase(dev)
         tr7, fwd_launches, bwd_launches = train_phase(os.path.join(ws, "train"))
         k1_fwd["launches"] += fwd_launches
         k1_bwd["launches"] += bwd_launches
+        with capture_k1() as seen:      # one more step of the trained state
+            tr7.train_step()
+        step_case = dict(seen[-1], name="real train step (packed, ray order)")
         hash_rows = hash_kernels_phase(dev)
         for backend in ("bucket", "pallas"):
             tr, fwd, bwd = train_phase(os.path.join(ws, f"train_{backend}"),
@@ -262,12 +310,17 @@ def main(argv=None):
         k5_rows = lookup_phase(dev)
         teacher_ckpt = os.path.join(ws, "train", "checkpoints",
                                     f"ngp_step{TRAIN_STEPS:07d}.npz")
-        fwd, bwd, k4_seal = seal_phase(dev, os.path.join(ws, "seal"),
-                                       teacher_ckpt)
+        fwd, bwd, k4_seal, seal_case = seal_phase(
+            dev, os.path.join(ws, "seal"), teacher_ckpt)
         k1_fwd["launches"] += fwd
         k1_bwd["launches"] += bwd
         k4["launches"] += k4_seal
-    kernels = [k1_fwd, k1_bwd, *hash_rows, k4, *k5_rows]
+        del tr7
+        torch.cuda.empty_cache()
+        k1_tp = k1_levels_phase(dev, chunk)
+        k1_measure_phase(dev, k1_bwd, step_case, chunk, seal_case,
+                         args.k1_baseline)
+    kernels = [k1_fwd, k1_bwd, k1_tp, *hash_rows, k4, *k5_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for row in kernels:
@@ -432,13 +485,16 @@ def run_phases(dev, ws):
             "launches": launches, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             **encode_bound(xn.shape[0], n_valid, 16, 4, table.shape[0],
-                           valid_bytes=1)}, ds
+                           valid_bytes=1)}, ds, {
+        "name": "real render chunk (packed, ray order)", "cfg": fcfg.grid,
+        "table": table.detach(), "x": xn, "valid": mf.valid, "g": None}
 
 
 def k1_bwd_phase(dev):
     """Phase 6 -> the kernel-table row of halo_encode_bwd, timed at the
-    M=196,608 F=4 case (the train step's shape); max_abs_err is that
-    case's; every case is checked."""
+    M=196,608 F=4 case (random points; phase 16 replaces the row's times
+    and bound by those of a real train step); max_abs_err is that case's;
+    every case is checked."""
     from seal3d_tpu_torch.ops.halo_encode import (halo_encode_bwd,
                                                   halo_encode_bwd_plain)
     from seal3d_tpu_torch.ops.hashgrid import HashGridConfig
@@ -953,7 +1009,8 @@ def lookup_phase(dev):
 
 def seal_phase(dev, ws, teacher_ckpt):
     """Phase 14 -> (K1 forward launches, K1 backward launches, K4 launches)
-    of the bbox edit through the CLI and of the edited views' renders."""
+    of the bbox edit through the CLI and of the edited views' renders, and
+    the K1 arguments of its first pretraining batch."""
     from seal3d_tpu_torch import main_SealNeRF
     from seal3d_tpu_torch.config import common_parser, load_dataset
     from seal3d_tpu_torch.models import ngp
@@ -974,9 +1031,12 @@ def seal_phase(dev, ws, teacher_ckpt):
                ladder_plan):
         fn.launches = 0
     t0 = time.perf_counter()
-    st = main_SealNeRF.main(argv)
+    with capture_k1(lambda x: x.shape[0] == 2**19, first_only=True) as seen:
+        st = main_SealNeRF.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
+    check(len(seen) == 1, "no pretraining batch of 2^19 points was seen")
+    seal_case = dict(seen[0], name="Seal pretraining batch (shell points)")
     fwd, bwd = halo_encode.launches, halo_encode_bwd.launches
     check(hash_encode.launches == 0 and hash_encode_bwd.launches == 0
           and ladder_plan.launches == 0, "the -O edit launched other kernels")
@@ -1102,7 +1162,268 @@ def seal_phase(dev, ws, teacher_ckpt):
     check(d_img <= 1e-5 and d_dep <= 1e-4,
           f"edited views differ with K4: {d_img} {d_dep}")
     check(k4 > 0 and k4 == expect, f"K4 launches {k4} != {expect}")
-    return fwd, bwd, k4
+    return fwd, bwd, k4, seal_case
+
+
+@contextlib.contextmanager
+def capture_k1(want=lambda x: True, first_only=False):
+    """Record the arguments K1 is launched with while the block runs: yields
+    a list that gains one dict (cfg, table, x, valid, g) per forward launch
+    on positions `x` for which want(x) holds and whose backward launch
+    follows; with first_only, the first such pair alone."""
+    from seal3d_tpu_torch.ops import halo_encode as k1
+
+    seen, last = [], {}
+    fwd, bwd = k1._launch_fwd, k1._launch_bwd
+
+    def rec_fwd(table, x, valid, cfg, *rest):
+        if want(x) and not (first_only and seen):
+            last.update(cfg=cfg, table=table.detach(), x=x, valid=valid)
+        return fwd(table, x, valid, cfg, *rest)
+
+    def rec_bwd(g, x, *rest):
+        if last and x.data_ptr() == last["x"].data_ptr():
+            seen.append(dict(last, g=g.detach().reshape(x.shape[0], -1)
+                             .clone()))
+            last.clear()
+        return bwd(g, x, *rest)
+
+    k1._launch_fwd, k1._launch_bwd = rec_fwd, rec_bwd
+    try:
+        yield seen
+    finally:
+        k1._launch_fwd, k1._launch_bwd = fwd, bwd
+
+
+@contextlib.contextmanager
+def k1_library(source):
+    """Route K1's wrappers to a build of another version of
+    csrc/halo_encode.cu (`source`; None: the tree's) while the block runs.
+    A version from before the row-stride argument ignores it and takes
+    packed rows, which is all the timed cases hand it."""
+    from seal3d_tpu_torch.ops import halo_encode as k1
+    from seal3d_tpu_torch.runtime.build import build_library
+
+    if source is None:
+        yield
+        return
+    lib = ctypes.CDLL(build_library([source]).path)
+    tree = k1._entry
+    k1._entry = lambda name: k1.bind_entry(lib, name)
+    try:
+        yield
+    finally:
+        k1._entry = tree
+
+
+def k1_levels_phase(dev, chunk):
+    """Phase 15 -> the kernel-table row of K1 over a level range (the
+    per-shard program of the level-sharded encode), timed as the 4 shards of
+    n_model=4 on the real render chunk, each writing its columns of the full
+    feature tensor."""
+    from seal3d_tpu_torch.ops.halo_encode import (halo_encode,
+                                                  halo_encode_levels,
+                                                  halo_encode_plain,
+                                                  halo_encode_sharded)
+
+    cfg = chunk["cfg"]
+    levels, t_rows, f = cfg.num_levels, 2**cfg.log2_hashmap_size, 4
+    rng = np.random.default_rng(15)
+    m = 2**20
+    x = torch.from_numpy(rng.uniform(0, 1, (m, 3)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.uniform(size=m) >= 0.25).to(dev)
+    tab = torch.from_numpy(rng.uniform(-1, 1, (cfg.total_params, f))
+                           .astype(np.float32)).to(dev)
+    inputs = [("random M=2^20", tab, x, valid),
+              ("real chunk", chunk["table"], chunk["x"], chunk["valid"])]
+    halo_encode_levels.launches = 0
+    expect = 0
+    for tag, t, xx, vv in inputs:
+        mm = xx.shape[0]
+        g = torch.empty((mm, levels * f), device=dev).uniform_(
+            -1, 1, generator=torch.Generator(device=dev).manual_seed(15))
+        whole = t.clone().requires_grad_()
+        ref = halo_encode(whole, xx, vv, cfg).reshape(mm, -1)
+        ref.backward(g)
+        scale = float(whole.grad.abs().max())
+        for n_model, n_data in ((2, 1), (4, 1), (8, 1), (4, 2)):
+            ts = t.clone().requires_grad_()
+            out = halo_encode_sharded(ts, xx, vv, cfg, n_model, n_data)
+            out.backward(g)
+            expect += 2 * n_model * n_data
+            same = torch.equal(out.detach(), ref.detach())
+            err = float((ts.grad - whole.grad).abs().max())
+            print(f"[k1 levels] {tag} M={mm} model={n_model} data={n_data}: "
+                  f"forward {'bit-identical' if same else 'DIFFERS'} to the "
+                  f"whole encode, table gradient max_abs_err {err:.3e} (max "
+                  f"|grad| {scale:.3e}, rel {err / scale:.3e})")
+            check(same, f"sharded forward {tag} model={n_model} differs")
+            check(err <= BWD_RTOL * scale,
+                  f"sharded gradient {tag} model={n_model}: {err} of {scale}")
+            del ts, out
+        del whole, ref, g
+    launches = halo_encode_levels.launches
+    print(f"[k1 levels] level-range launches {launches} (shard programs, "
+          f"forward and backward: {expect})")
+    check(launches == expect, f"level-range launches {launches} != {expect}")
+
+    # the 4 shard programs of n_model=4 against their plain versions
+    _, t, xx, vv = inputs[1]
+    per = levels // 4
+    shards = [t[j * per * t_rows:(j + 1) * per * t_rows] for j in range(4)]
+    full = torch.empty((xx.shape[0], levels, f), device=dev)
+
+    def kernel():
+        for j, tj in enumerate(shards):
+            halo_encode_levels(tj, xx, vv, cfg, j * per, per, out=full)
+        return full
+
+    def plain():
+        return torch.cat([halo_encode_plain(tj, xx, vv, cfg,
+                                            range(j * per, (j + 1) * per))
+                          for j, tj in enumerate(shards)], dim=1)
+
+    err, _, ms, plain_ms = compare(kernel, plain)
+    with torch.no_grad():
+        whole_ms = time_ms(lambda: halo_encode(t, xx, vv, cfg))
+    n_valid = int(vv.sum())
+    print(f"[k1 levels] real chunk M={xx.shape[0]} ({n_valid} valid), 4 "
+          f"shards of {per} levels into their columns of [M, {levels}, {f}]: "
+          f"max_abs_err {err:.3e}; the 4 launches {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, the whole encode in one launch {whole_ms:.3f} "
+          f"ms")
+    check(err <= TOL, f"level-range K1 disagrees with plain: {err}")
+    return {"name": "halo_encode_levels", "route": "cuda",
+            "source": "seal3d_tpu_torch/csrc/halo_encode.cu",
+            "replaces": "seal3d_tpu/ops/pallas/halo_encode.py:497",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            **encode_bound(xx.shape[0], n_valid, levels, f, t.shape[0],
+                           valid_bytes=1)}
+
+
+def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
+    """Phase 16: K1 where the main path runs it. Forward and backward, whole
+    and level by level, on the packed samples of a real train step, on
+    random points of the same count, on the real render chunk, on one Seal
+    pretraining batch and on 2^20 random points; each version of the kernels
+    (the tree's, then every --k1-baseline) timed in turns, as device time
+    (`time_device_ms`). The backward is held against the plain version fed
+    a float64 cotangent, within BWD_RTOL of its largest entry.
+    Updates the backward's kernel-table row to the real train step."""
+    from seal3d_tpu_torch.ops.halo_encode import (halo_encode, halo_encode_bwd,
+                                                  halo_encode_bwd_plain,
+                                                  halo_encode_levels,
+                                                  halo_encode_plain)
+
+    cfg = step_case["cfg"]
+    levels, t_rows = cfg.num_levels, 2**cfg.log2_hashmap_size
+    rng = np.random.default_rng(16)
+
+    def uniform(m):
+        return torch.from_numpy(rng.uniform(0, 1, (m, 3))
+                                .astype(np.float32)).to(dev)
+
+    m20 = 2**20
+    cases = [
+        dict(step_case, per_level=True),
+        dict(step_case, per_level=True, x=uniform(step_case["x"].shape[0]),
+             name="random points, the train step's count and valid"),
+        dict(chunk, per_level=True),
+        dict(seal_case, per_level=False),
+        dict(name="random points M=2^20, 25% invalid", cfg=cfg,
+             table=step_case["table"], x=uniform(m20),
+             valid=torch.from_numpy(rng.uniform(size=m20) >= 0.25).to(dev),
+             g=torch.from_numpy(rng.uniform(-1, 1, (m20, levels * 4))
+                                .astype(np.float32)).to(dev),
+             per_level=False)]
+    variants = [None, *baselines]
+    names = ["tree"] + [os.path.basename(os.path.dirname(b)) + "/"
+                        + os.path.basename(b) for b in baselines]
+    results = []
+    for case in cases:
+        t, x, v, g = case["table"], case["x"], case["valid"], case["g"]
+        m, f, n = x.shape[0], t.shape[1], t.shape[0]
+        n_valid = m if v is None else int(v.sum())
+        ops = {"fwd": lambda: halo_encode(t, x, v, cfg)}
+        if g is not None:
+            ops["bwd"] = lambda: halo_encode_bwd(g, x, v, cfg, n)
+        if case["per_level"]:
+            for l in range(levels):
+                tl = t[l * t_rows:(l + 1) * t_rows]
+                ops[f"fwd L{l}"] = (lambda tl=tl, l=l: halo_encode_levels(
+                    tl, x, v, cfg, l, 1))
+                if g is not None:
+                    gl = g.reshape(m, levels, f)[:, l].contiguous()
+                    ops[f"bwd L{l}"] = (lambda gl=gl, l=l: halo_encode_bwd(
+                        gl, x, v, cfg, t_rows, range(l, l + 1)))
+        # right first: the tree's against plain, every baseline against it
+        with torch.no_grad():
+            ref_f = halo_encode(t, x, v, cfg)
+            err_f = float((ref_f - halo_encode_plain(t, x, v, cfg)).abs().max())
+            check(err_f <= TOL, f"K1 fwd on {case['name']}: {err_f}")
+            err_b = err_p = scale = plain_ms = None
+            if g is not None:
+                ref_b = halo_encode_bwd(g, x, v, cfg, n)
+                exact = halo_encode_bwd_plain(g.double(), x, v, cfg, n)
+                scale = float(exact.abs().max())
+                err_b = float((ref_b - exact).abs().max())
+                err_p = float((halo_encode_bwd_plain(g, x, v, cfg, n)
+                               - exact).abs().max())
+                del exact
+                check(err_b <= BWD_RTOL * scale,
+                      f"K1 bwd on {case['name']}: {err_b} of {scale}")
+            for src, name in zip(variants[1:], names[1:]):
+                with k1_library(src):
+                    check(torch.equal(halo_encode(t, x, v, cfg), ref_f),
+                          f"K1 fwd of {name} is not bit-identical to the "
+                          f"tree's on {case['name']}")
+                    if g is not None:
+                        d = float((halo_encode_bwd(g, x, v, cfg, n)
+                                   - ref_b).abs().max())
+                        check(d <= 5 * BWD_RTOL * scale,
+                              f"K1 bwd of {name} differs from the tree's on "
+                              f"{case['name']}: {d} of {scale}")
+            del ref_f
+            # timed in turns: every version, then every version in reverse
+            times = {name: {op: 0.0 for op in ops} for name in names}
+            for op, fn in ops.items():
+                order = list(zip(variants, names))
+                for src, name in order + order[::-1]:
+                    with k1_library(src):
+                        times[name][op] += time_device_ms(fn) / 2
+            if g is not None and case is cases[0]:
+                plain_ms = time_ms(lambda: halo_encode_bwd_plain(
+                    g, x, v, cfg, n), 3)
+        print(f"[k1 cases] {case['name']}: M={m} ({n_valid} valid) L={levels}"
+              f" F={f}; tree fwd max_abs_err {err_f:.3e}"
+              + ("" if g is None else
+                 f", bwd max_abs_err {err_b:.3e} of max |grad| {scale:.3e} "
+                 f"against the float64 plain sum (rel {err_b / scale:.3e}, "
+                 f"tolerance {BWD_RTOL:.0e}; the fp32 plain version's rel "
+                 f"{err_p / scale:.3e})")
+              + ("" if len(names) == 1 else "; baselines: forward "
+                 "bit-identical, backward within tolerance"))
+        for name in names:
+            tm = times[name]
+            line = f"[k1 cases]   {name}: fwd {tm['fwd']:.4f} ms"
+            if g is not None:
+                line += f", bwd {tm['bwd']:.4f} ms"
+            print(line)
+            if case["per_level"]:
+                for op in ("fwd", "bwd")[:1 if g is None else 2]:
+                    per = [tm[f"{op} L{l}"] * 1e3 for l in range(levels)]
+                    print(f"[k1 cases]     {op} level by level, us: "
+                          f"{[round(u, 1) for u in per]} (sum "
+                          f"{sum(per) / 1e3:.4f} ms)")
+        results.append({"case": case["name"], "m": m, "valid": n_valid,
+                        "ms": times})
+        if case is cases[0]:
+            bwd_row.update(
+                ms=times["tree"]["bwd"], plain_ms=plain_ms,
+                max_abs_err=max(bwd_row["max_abs_err"], err_b),
+                **encode_bound(m, n_valid, levels, f, n, valid_bytes=1))
+    print("[k1 cases json] " + json.dumps(results))
 
 
 def pth_round_trip(tr, ws):

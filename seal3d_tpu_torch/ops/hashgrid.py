@@ -134,17 +134,25 @@ def _corner_indices(pos0: torch.Tensor, resolution: int, use_hash: bool,
     return (idx & _U32) % params_in_level
 
 
-def corner_indices_weights(xf: torch.Tensor, cfg: HashGridConfig):
+def corner_indices_weights(xf: torch.Tensor, cfg: HashGridConfig,
+                           levels: Optional[range] = None):
     """All levels' corner indices and interpolation weights.
 
     xf: [M, dim] positions in [0, 1] ->
       idx [M, L, 2^dim] int64 global table indices,
       w   [M, L, 2^dim] f32 interpolation weights.
+    With `levels` (a contiguous range) only those levels are computed, and
+    the indices address a table that holds these levels alone (they count
+    from the first level's offset).
     """
     dim = cfg.input_dim
     corners = _corner_offsets(dim, xf.device)
+    params = cfg.level_params
+    if levels is not None:
+        params = params[levels.start:levels.stop]
+    base = params[0][1]
     all_idx, all_w = [], []
-    for resolution, offset, params_in_level, use_hash, scale in cfg.level_params:
+    for resolution, offset, params_in_level, use_hash, scale in params:
         pos = xf * scale + (0.0 if cfg.align_corners else 0.5)
         pos = pos.clamp(0.0, float(resolution - 1))
         pos0 = torch.floor(pos)
@@ -154,7 +162,7 @@ def corner_indices_weights(xf: torch.Tensor, cfg: HashGridConfig):
         cpos = pos0.to(torch.int64)[:, None, :] + corners[None, :, :]
         cpos = cpos.clamp(0, resolution - 1)
         idx = _corner_indices(cpos, resolution, use_hash, params_in_level,
-                              dim, cfg.gridtype) + offset
+                              dim, cfg.gridtype) + (offset - base)
         w = torch.where(corners[None, :, :] == 1, frac[:, None, :],
                         1.0 - frac[:, None, :]).prod(-1)
         all_idx.append(idx)
@@ -162,29 +170,28 @@ def corner_indices_weights(xf: torch.Tensor, cfg: HashGridConfig):
     return torch.stack(all_idx, dim=1), torch.stack(all_w, dim=1)
 
 
-def gather_encode(table: torch.Tensor, xf: torch.Tensor,
-                  cfg: HashGridConfig) -> torch.Tensor:
-    """Plain corner gather + weighted sum: [M, dim] -> [M, L, F]."""
-    m = xf.shape[0]
-    idx, w = corner_indices_weights(xf, cfg)
-    feats = table[idx.reshape(m, -1)].reshape(
-        m, cfg.num_levels, 2**cfg.input_dim, table.shape[-1])
+def gather_encode(table: torch.Tensor, xf: torch.Tensor, cfg: HashGridConfig,
+                  levels: Optional[range] = None) -> torch.Tensor:
+    """Plain corner gather + weighted sum: [M, dim] -> [M, L, F]; with
+    `levels`, over that range of levels of a table that holds them alone."""
+    idx, w = corner_indices_weights(xf, cfg, levels)
+    feats = table[idx.flatten(1)].reshape(*idx.shape, table.shape[-1])
     return (feats * w[..., None]).sum(dim=2)
 
 
 def gather_encode_bwd(g: torch.Tensor, xf: torch.Tensor, cfg: HashGridConfig,
-                      n_rows: int,
-                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      n_rows: int, valid: Optional[torch.Tensor] = None,
+                      levels: Optional[range] = None) -> torch.Tensor:
     """The table gradient [n_rows, F] of `gather_encode` for the cotangent
     g [M, L, F] (or [M, L*F]): one index_add_ of w * g over the 8 corners of
-    every row and level (rows whose `valid` is false add nothing)."""
-    m, levels = xf.shape[0], cfg.num_levels
-    g = g.reshape(m, levels, -1)
-    idx, w = corner_indices_weights(xf, cfg)            # [M, L, 2^dim]
+    every row and level (rows whose `valid` is false add nothing). `levels`
+    as in `gather_encode`."""
+    idx, w = corner_indices_weights(xf, cfg, levels)    # [M, L, 2^dim]
+    f_dim = g.shape[-1] // (1 if g.dim() == 3 else idx.shape[1])
+    g = g.reshape(xf.shape[0], idx.shape[1], f_dim)
     contrib = w[..., None] * g[:, :, None, :]           # [M, L, 2^dim, F]
     if valid is not None:
         contrib = torch.where(valid[:, None, None, None], contrib, 0.0)
-    f_dim = g.shape[-1]
     return g.new_zeros((n_rows, f_dim)).index_add_(
         0, idx.reshape(-1), contrib.reshape(-1, f_dim))
 
@@ -287,8 +294,11 @@ def hashgrid_encode(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig,
     xf = x.reshape(-1, dim).to(torch.float32)
     if cfg.shard_levels:
         raise NotImplementedError(
-            "level-sharded tensor parallelism is TPU-mesh machinery the port "
-            "leaves out (ROADMAP.md 'Not to port')")
+            "level-sharded tensor parallelism across cards is not ported "
+            "yet: it needs torch.distributed and at least two cards "
+            "(ROADMAP.md Queue 1, the multi-GPU item). The per-shard program "
+            "is ops/halo_encode.py halo_encode_levels; halo_encode_sharded "
+            "runs all shards on one card")
     if cfg.backend not in backends():
         raise ValueError(f"unknown grid backend {cfg.backend!r}")
     backend = backends()[cfg.backend]

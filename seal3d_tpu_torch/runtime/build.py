@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -46,9 +46,12 @@ def _nvcc() -> str:
     return path
 
 
-def build_library() -> BuildResult:
-    """Compile csrc/*.cu into _build/ unless an identical build exists."""
-    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+def build_library(sources: Optional[Sequence[str]] = None) -> BuildResult:
+    """Compile csrc/*.cu into _build/ unless an identical build exists. With
+    `sources`, compile those files instead (other versions of csrc files,
+    to time beside the tree's: they find the shared headers in csrc/)."""
+    sources = sorted(sources if sources is not None
+                     else glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
@@ -67,7 +70,8 @@ def build_library() -> BuildResult:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, os.path.basename(src) + ".o")
                 for src in sources]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c",
+                                   "-o", obj, src],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for src, obj in zip(sources, objs)]

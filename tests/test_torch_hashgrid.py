@@ -146,7 +146,7 @@ def test_unported_backends_raise():
                                       thg.HashGridConfig(backend="xla", **kw))
     ref = jhg.hashgrid_encode(jnp.asarray(native.numpy()), jnp.asarray(x), jx)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="Not to port"):
+    with pytest.raises(NotImplementedError, match="multi-GPU item"):
         thg.hashgrid_encode(torch.from_numpy(tab), torch.from_numpy(x),
                             thg.HashGridConfig(shard_levels=True, **kw))
     with pytest.raises(ValueError, match="unknown grid backend"):
