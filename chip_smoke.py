@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (seal3d_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--workspace DIR] [--k1-baseline FILE.cu ...]
+                          [--hash-baseline FILE.cu ...]
 
 Phases, each of which raises (exit code != 0) when it fails:
 1. print the card (nvidia-smi name and power limit) and build the CUDA
@@ -110,6 +111,32 @@ Phases, each of which raises (exit code != 0) when it fails:
    <commit>:seal3d_tpu_torch/csrc/halo_encode.cu`) are built beside the
    tree's, must give the bit-identical forward, and are timed on the same
    cases in turns.
+17. the hash-encode kernels where their paths run them (it runs after phase
+   10, on that phase's and phase 9's trained states): forward and backward
+   on the arguments of one more train step of the `bucket` state (T=2^19,
+   F=4: x and cotangent as the step hands them over), on the busiest packed
+   chunk of 800x800 test view 0 rendered from that state, on random points
+   of the step's count and on 2^20 random points, and the same four on the
+   `pallas` state (T=2^15); the bucket cases also level by level (16
+   launches over one-level configs and table slices). Forward <= 1e-5 of
+   plain, backward within BWD_RTOL of the largest entry of the plain version
+   fed a float64 cotangent. Device times (CUDA-graph replays; the backward
+   with the zero fill of its gradient). Beside each case's byte bound, its
+   sector floor: the 32-byte table sectors distinct within each warp of 32
+   consecutive samples over the L2's sector rate, or those distinct in all
+   over the device-memory rate, whichever is larger. Then, around the
+   forward's switch from the direct kernel to the tiles, prefixes of both
+   real chunks (F=4 with a random cotangent, and F=2) and the first query
+   chunk of a full grid update, and ms per train step and seconds per
+   800x800 view of both states. With --hash-baseline FILE.cu, other
+   versions of csrc/hash_encode.cu (`git show
+   <commit>:seal3d_tpu_torch/csrc/hash_encode.cu`) are built beside the
+   tree's, must give the bit-identical forward on every case, and are timed
+   on the same cases, steps and views in turns (a copy of the tree's source
+   with another constant is such a version too). The kernel-table rows of
+   hash_encode_fwd and hash_encode_bwd take their times and bounds from the
+   bucket chunk (the table sectors it touches counted once) and the bucket
+   step (the whole gradient written once).
 The line before the last is the kernel table as JSON (eight kernels, each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
@@ -146,6 +173,10 @@ SEAL_EPOCHS, SEAL_STEPS = 50, 500   # the recipe's pretrain epochs, finetune
 # larger of its bytes over the first and its operations over the second
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+# the rate at which the L2 serves 32-byte sectors to a gather that misses L1:
+# phase 16's one-level K1 launches on the fine levels of a real chunk move
+# 4.4-4.8e12 bytes/s of them (this card, PERF.md section 6)
+L2_SECTOR_BYTES_S = 4.6e12
 LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 
 
@@ -213,14 +244,19 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def encode_bound(m, n_valid, levels, f, table_rows, valid_bytes=0,
-                 hashed_levels=0) -> dict:
+                 hashed_levels=0, touched_bytes=None) -> dict:
     """Bound of a multiresolution encode, forward or backward alike: per row
     x (12 B) and its valid byte, the [M, L*F] fp32 features (forward: out;
     backward: the cotangent in) once, the [rows, F] fp32 table once (read,
-    or written as the gradient). Per valid (row, level): 8 corners x F
+    or written as the gradient). touched_bytes: the bytes of the table's
+    32-byte sectors that a forward on this data reads, where that is less
+    than the whole table. Per valid (row, level): 8 corners x F
     multiply-adds, ~30 operations of cell and weight arithmetic, and 5 per
     corner more where the level is hashed."""
-    n_bytes = m * (12 + valid_bytes) + 4 * f * (table_rows + m * levels)
+    table_bytes = 4 * f * table_rows
+    if touched_bytes is not None:
+        table_bytes = min(table_bytes, touched_bytes)
+    n_bytes = m * (12 + valid_bytes) + table_bytes + 4 * f * m * levels
     n_ops = n_valid * (levels * (16 * f + 30) + hashed_levels * 40)
     return bound(n_bytes, n_ops)
 
@@ -264,6 +300,10 @@ def main(argv=None):
                          "same C entries (an earlier commit's, say): built "
                          "beside the tree's and timed on the same K1 cases "
                          "in turns (phase 16); may be given more than once")
+    ap.add_argument("--hash-baseline", action="append", default=[],
+                    metavar="FILE.cu",
+                    help="the same for csrc/hash_encode.cu and the hash-encode "
+                         "cases (phase 17)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (this script has no CPU "
@@ -298,13 +338,18 @@ def main(argv=None):
             tr7.train_step()
         step_case = dict(seen[-1], name="real train step (packed, ray order)")
         hash_rows = hash_kernels_phase(dev)
+        hash_trainers = {}
         for backend in ("bucket", "pallas"):
             tr, fwd, bwd = train_phase(os.path.join(ws, f"train_{backend}"),
                                        backend)
             pth_round_trip(tr, os.path.join(ws, f"train_{backend}"))
             hash_rows[0]["launches"] += fwd
             hash_rows[1]["launches"] += bwd
-            del tr
+            hash_trainers[backend] = tr
+        hash_measure_phase(dev, hash_rows, hash_trainers, ds800,
+                           args.hash_baseline)
+        del hash_trainers, tr
+        torch.cuda.empty_cache()
         k4 = ladder_phase(dev, tr7, ds800, ws)
         del ds800
         k5_rows = lookup_phase(dev)
@@ -1196,24 +1241,31 @@ def capture_k1(want=lambda x: True, first_only=False):
 
 
 @contextlib.contextmanager
-def k1_library(source):
-    """Route K1's wrappers to a build of another version of
-    csrc/halo_encode.cu (`source`; None: the tree's) while the block runs.
-    A version from before the row-stride argument ignores it and takes
-    packed rows, which is all the timed cases hand it."""
-    from seal3d_tpu_torch.ops import halo_encode as k1
+def other_library(ops_module, source):
+    """Route the wrappers of `ops_module` (ops.halo_encode or
+    ops.hash_encode) to a build of another version of its CUDA source
+    (`source`; None: the tree's) while the block runs. A version from before
+    a trailing argument was added (K1's row stride) ignores it, which suits
+    every timed case: packed rows."""
     from seal3d_tpu_torch.runtime.build import build_library
 
     if source is None:
         yield
         return
     lib = ctypes.CDLL(build_library([source]).path)
-    tree = k1._entry
-    k1._entry = lambda name: k1.bind_entry(lib, name)
+    tree = ops_module._entry
+    ops_module._entry = lambda name: ops_module.bind_entry(lib, name)
     try:
         yield
     finally:
-        k1._entry = tree
+        ops_module._entry = tree
+
+
+def baseline_names(baselines):
+    """Display names of the versions timed: the tree's, then each baseline
+    file as <its directory>/<its name>."""
+    return ["tree"] + [os.path.basename(os.path.dirname(os.path.abspath(b)))
+                       + "/" + os.path.basename(b) for b in baselines]
 
 
 def k1_levels_phase(dev, chunk):
@@ -1311,6 +1363,7 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
     (`time_device_ms`). The backward is held against the plain version fed
     a float64 cotangent, within BWD_RTOL of its largest entry.
     Updates the backward's kernel-table row to the real train step."""
+    from seal3d_tpu_torch.ops import halo_encode as k1
     from seal3d_tpu_torch.ops.halo_encode import (halo_encode, halo_encode_bwd,
                                                   halo_encode_bwd_plain,
                                                   halo_encode_levels,
@@ -1338,8 +1391,7 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
                                 .astype(np.float32)).to(dev),
              per_level=False)]
     variants = [None, *baselines]
-    names = ["tree"] + [os.path.basename(os.path.dirname(b)) + "/"
-                        + os.path.basename(b) for b in baselines]
+    names = baseline_names(baselines)
     results = []
     for case in cases:
         t, x, v, g = case["table"], case["x"], case["valid"], case["g"]
@@ -1374,7 +1426,7 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
                 check(err_b <= BWD_RTOL * scale,
                       f"K1 bwd on {case['name']}: {err_b} of {scale}")
             for src, name in zip(variants[1:], names[1:]):
-                with k1_library(src):
+                with other_library(k1, src):
                     check(torch.equal(halo_encode(t, x, v, cfg), ref_f),
                           f"K1 fwd of {name} is not bit-identical to the "
                           f"tree's on {case['name']}")
@@ -1390,7 +1442,7 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
             for op, fn in ops.items():
                 order = list(zip(variants, names))
                 for src, name in order + order[::-1]:
-                    with k1_library(src):
+                    with other_library(k1, src):
                         times[name][op] += time_device_ms(fn) / 2
             if g is not None and case is cases[0]:
                 plain_ms = time_ms(lambda: halo_encode_bwd_plain(
@@ -1424,6 +1476,336 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
                 max_abs_err=max(bwd_row["max_abs_err"], err_b),
                 **encode_bound(m, n_valid, levels, f, n, valid_bytes=1))
     print("[k1 cases json] " + json.dumps(results))
+
+
+@contextlib.contextmanager
+def capture_hash():
+    """Record the arguments the hash-encode kernels are launched with while
+    the block runs: yields a list that gains one dict (cfg, table, x, g) per
+    forward launch; g is the cotangent of the backward launch on the same
+    positions where one follows, else None."""
+    from seal3d_tpu_torch.ops import hash_encode as k3
+
+    seen = []
+    fwd, bwd = k3._launch_fwd, k3._launch_bwd
+
+    def rec_fwd(table, x, cfg):
+        seen.append(dict(cfg=cfg, table=table.detach(), x=x, g=None))
+        return fwd(table, x, cfg)
+
+    def rec_bwd(g, x, cfg, n_rows):
+        for rec in reversed(seen):
+            if rec["x"].data_ptr() == x.data_ptr():
+                rec["g"] = g.detach().reshape(x.shape[0], -1).clone()
+                break
+        return bwd(g, x, cfg, n_rows)
+
+    k3._launch_fwd, k3._launch_bwd = rec_fwd, rec_bwd
+    try:
+        yield seen
+    finally:
+        k3._launch_fwd, k3._launch_bwd = fwd, bwd
+
+
+def one_level_config(cfg, level):
+    """A one-level HashGridConfig with the geometry and size of `level` of
+    cfg: the kernels run on it over that level's slice of the table."""
+    base = cfg.base_resolution * cfg.per_level_scale ** level
+    one = dataclasses.replace(cfg, num_levels=1, base_resolution=base,
+                              desired_resolution=base)
+    res, _, n, hashed, scale = cfg.level_params[level]
+    check(one.level_params[0] == (res, 0, n, hashed, scale),
+          f"one-level config of level {level}: {one.level_params[0]} != "
+          f"{(res, 0, n, hashed, scale)}")
+    return one
+
+
+def sector_counts(x, cfg, f):
+    """The 32-byte table sectors an encode of positions x touches, summed
+    over the levels: (corner requests, sectors distinct within each warp of
+    32 consecutive samples, sectors distinct over the whole batch). The
+    second is what the caches must serve however the lanes are ordered; the
+    third must come from device memory at least once."""
+    from seal3d_tpu_torch.ops.hashgrid import corner_indices_weights
+
+    per = 32 // (4 * f)      # table rows in one sector; level offsets are
+    m = x.shape[0]           # multiples of 8 rows, so sectors do not straddle
+    warp = (torch.arange(m, device=x.device) // 32)[:, None]
+    in_warp = distinct = 0
+    for level in range(cfg.num_levels):
+        idx, _ = corner_indices_weights(x, cfg, range(level, level + 1))
+        sec = idx[:, 0] // per
+        n_sec = cfg.level_params[level][2] // per + 1
+        distinct += int(torch.unique(sec).numel())
+        in_warp += int(torch.unique(warp * n_sec + sec).numel())
+    return m * cfg.num_levels * 8, in_warp, distinct
+
+
+def hash_measure_phase(dev, rows, trainers, ds800, baselines):
+    """Phase 17: the hash-encode kernels where their paths run them. rows:
+    the kernel-table rows of hash_encode_fwd and hash_encode_bwd, updated to
+    the bucket path's real chunk and real step; trainers: phase 9's and 10's
+    trained trainers by backend; ds800: the 800x800 test split."""
+    from seal3d_tpu_torch.config import (build_options, build_train_config,
+                                         common_parser)
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.ops import hash_encode as k3
+    from seal3d_tpu_torch.ops.hash_encode import (hash_encode,
+                                                  hash_encode_bwd,
+                                                  hash_encode_bwd_plain,
+                                                  hash_encode_plain)
+    from seal3d_tpu_torch.ops.hashgrid import corner_indices_weights
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(17)
+    variants = [None, *baselines]
+    names = baseline_names(baselines)
+    cli = common_parser("chip_smoke").parse_args(O_ARGV)
+
+    def uniform(m):
+        return torch.from_numpy(rng.uniform(0, 1, (m, 3))
+                                .astype(np.float32)).to(dev)
+
+    def in_turns(fn):
+        """fn() per version: every version, then every version in reverse."""
+        out = {name: [] for name in names}
+        order = list(zip(variants, names))
+        for src, name in order + order[::-1]:
+            with other_library(k3, src):
+                out[name].append(fn())
+        return out
+
+    cases, viewers, grid_queries = [], {}, {}
+    for backend, tr in trainers.items():
+        cfg = tr.fcfg.grid
+        with capture_hash() as seen:     # one more step of the trained state
+            tr.train_step()
+        steps = [c for c in seen if c["g"] is not None]
+        check(len(steps) == 1, f"{backend}: {len(steps)} train-step encodes "
+                               f"were captured")
+        state = tr.state
+        with capture_hash() as seen:     # the density queries of a full update
+            tr.update_grid(full=True)
+        tr.state = state
+        grid_queries[backend] = seen[0]
+        viewer = Trainer(ngp, tr.fcfg, build_options(cli),
+                         build_train_config(cli), dataset=ds800, device=dev)
+        viewer.state = tr.state
+        viewers[backend] = viewer
+        with capture_hash() as seen:
+            viewer.render_image(ds800.poses[0], ds800.h, ds800.w)
+        chunk = max(seen, key=lambda c: c["x"].shape[0])
+        n_chunks = len(seen)
+        del seen
+        m_step = steps[0]["x"].shape[0]
+        big = backend == "bucket"
+        cases += [
+            dict(steps[0], backend=backend, per_level=big,
+                 name=f"{backend}: real train step (packed, ray order)"),
+            dict(chunk, backend=backend, per_level=big,
+                 name=f"{backend}: busiest packed chunk of test view 0 "
+                      f"({n_chunks} chunks)"),
+            dict(steps[0], backend=backend, per_level=False,
+                 x=uniform(m_step),
+                 name=f"{backend}: random points, the train step's count"),
+            dict(backend=backend, per_level=big, cfg=cfg,
+                 table=steps[0]["table"], x=uniform(2**20),
+                 g=torch.from_numpy(rng.uniform(
+                     -1, 1, (2**20, cfg.num_levels * 4))
+                     .astype(np.float32)).to(dev),
+                 name=f"{backend}: random points M=2^20")]
+
+    results = []
+    for case in cases:
+        cfg, t, x, g = case["cfg"], case["table"], case["x"], case["g"]
+        m, f, n = x.shape[0], t.shape[1], t.shape[0]
+        levels = cfg.num_levels
+        hashed = sum(h for *_, h, _ in cfg.level_params)
+        ops = {"fwd": lambda: hash_encode(t, x, cfg)}
+        if g is not None:
+            ops["bwd"] = lambda: hash_encode_bwd(g, x, cfg, n)
+        if case["per_level"]:
+            for l in range(levels):
+                one = one_level_config(cfg, l)
+                _, off, rows_l, _, _ = cfg.level_params[l]
+                tl = t[off:off + rows_l]
+                ops[f"fwd L{l}"] = (lambda tl=tl, one=one:
+                                    hash_encode(tl, x, one))
+                if g is not None:
+                    gl = g.reshape(m, levels, f)[:, l].contiguous()
+                    ops[f"bwd L{l}"] = (lambda gl=gl, one=one, rows_l=rows_l:
+                                        hash_encode_bwd(gl, x, one, rows_l))
+        with torch.no_grad():
+            # right first: the tree's against plain, every baseline against it
+            ref_f = hash_encode(t, x, cfg)
+            plain_f = hash_encode_plain(t, x, cfg)
+            err_f = float((ref_f - plain_f).abs().max())
+            del plain_f
+            check(err_f <= TOL, f"hash fwd on {case['name']}: {err_f}")
+            err_b = err_p = scale = None
+            if g is not None:
+                ref_b = hash_encode_bwd(g, x, cfg, n)
+                exact = hash_encode_bwd_plain(g.double(), x, cfg, n)
+                scale = float(exact.abs().max())
+                err_b = float((ref_b - exact).abs().max())
+                err_p = float((hash_encode_bwd_plain(g, x, cfg, n)
+                               - exact).abs().max())
+                del exact
+                check(err_b <= BWD_RTOL * scale,
+                      f"hash bwd on {case['name']}: {err_b} of {scale}")
+            for src, name in zip(variants[1:], names[1:]):
+                with other_library(k3, src):
+                    check(torch.equal(hash_encode(t, x, cfg), ref_f),
+                          f"hash fwd of {name} is not bit-identical to the "
+                          f"tree's on {case['name']}")
+                    if g is not None:
+                        d = float((hash_encode_bwd(g, x, cfg, n)
+                                   - ref_b).abs().max())
+                        check(d <= 5 * BWD_RTOL * scale,
+                              f"hash bwd of {name} differs from the tree's "
+                              f"on {case['name']}: {d} of {scale}")
+            del ref_f
+            times = {name: {} for name in names}
+            for op, fn in ops.items():
+                for name, pair in in_turns(
+                        lambda fn=fn: time_device_ms(fn)).items():
+                    times[name][op] = sum(pair) / 2
+            requests, in_warp, distinct = sector_counts(x, cfg, f)
+        # the forward reads only the table sectors its samples touch; the
+        # backward writes the whole gradient
+        bnd_f = encode_bound(m, m, levels, f, n, hashed_levels=hashed,
+                             touched_bytes=32 * distinct)
+        bnd_b = encode_bound(m, m, levels, f, n, hashed_levels=hashed)
+        floor_ms = max(in_warp * 32 / L2_SECTOR_BYTES_S,
+                       distinct * 32 / PEAK_BYTES_S) * 1e3
+        print(f"[hash cases] {case['name']}: M={m} L={levels} F={f} "
+              f"({n} rows); tree fwd max_abs_err {err_f:.3e}"
+              + ("" if g is None else
+                 f", bwd max_abs_err {err_b:.3e} of max |grad| {scale:.3e} "
+                 f"against the float64 plain sum (rel {err_b / scale:.3e}, "
+                 f"tolerance {BWD_RTOL:.0e}; the fp32 plain version's rel "
+                 f"{err_p / scale:.3e})")
+              + ("" if len(names) == 1 else "; baselines: forward "
+                 "bit-identical, backward within tolerance"))
+        print(f"[hash cases]   byte bound forward {bnd_f['bound_ms']:.4f} ms "
+              f"({32 * distinct} of {4 * f * n} table bytes touched), "
+              f"backward {bnd_b['bound_ms']:.4f} ms; sectors: "
+              f"{requests} corner requests, {in_warp} distinct within warps "
+              f"of 32 consecutive samples, {distinct} distinct in all -> "
+              f"sector floor {floor_ms:.4f} ms")
+        for name in names:
+            tm = times[name]
+            line = f"[hash cases]   {name}: fwd {tm['fwd']:.4f} ms"
+            if g is not None:
+                line += f", bwd {tm['bwd']:.4f} ms (with its zero fill)"
+            print(line)
+            if case["per_level"]:
+                for op in ("fwd", "bwd")[:1 if g is None else 2]:
+                    per = [tm[f"{op} L{l}"] * 1e3 for l in range(levels)]
+                    print(f"[hash cases]     {op} level by level, us: "
+                          f"{[round(u, 1) for u in per]} (sum "
+                          f"{sum(per) / 1e3:.4f} ms)")
+        results.append({"case": case["name"], "m": m, "requests": requests,
+                        "sectors_in_warp": in_warp, "sectors": distinct,
+                        "floor_ms": floor_ms, "bound_ms": bnd_f["bound_ms"],
+                        "bwd_bound_ms": bnd_b["bound_ms"], "ms": times})
+        # the kernel-table rows: the bucket path's real chunk and real step
+        if case["backend"] == "bucket" and "chunk" in case["name"]:
+            with torch.no_grad():
+                plain_ms = time_ms(lambda: hash_encode_plain(t, x, cfg), 3)
+            rows[0].update(ms=times["tree"]["fwd"], plain_ms=plain_ms,
+                           max_abs_err=max(rows[0]["max_abs_err"], err_f),
+                           **bnd_f)
+        if case["backend"] == "bucket" and "real train step" in case["name"]:
+            with torch.no_grad():
+                plain_ms = time_ms(lambda: hash_encode_bwd_plain(g, x, cfg, n),
+                                   3)
+                # K2's own function as one PyTorch call on this step's keys
+                keys, w = corner_indices_weights(x, cfg)
+                contrib = (g.reshape(m, levels, 1, f)
+                           * w[..., None]).reshape(-1, f)
+                keys = keys.reshape(-1)
+                lib_ms = time_ms(lambda: torch.zeros(
+                    (n, f), device=dev).index_add_(0, keys, contrib), 5)
+                zero_ms = time_device_ms(
+                    lambda: torch.zeros((n, f), device=dev))
+                del keys, w, contrib
+            print(f"[hash cases]   the same scatter as index_add_: "
+                  f"{lib_ms:.3f} ms; the zero fill of the [{n}, {f}] "
+                  f"gradient alone: {zero_ms:.4f} ms")
+            rows[1].update(ms=times["tree"]["bwd"], plain_ms=plain_ms,
+                           library_ms=lib_ms,
+                           max_abs_err=max(rows[1]["max_abs_err"], err_b),
+                           **bnd_b)
+    print("[hash cases json] " + json.dumps(results))
+
+    # the forward's switch from the direct kernel to the tiles, by size, on
+    # what the paths send: prefixes of each real chunk (whole rays of it;
+    # F=4 with a random cotangent for the backward, and F=2 on the table's
+    # first two columns) and the first query chunk of a full grid update.
+    # Versions with another switch come in as baselines.
+    gen = torch.Generator(device=dev).manual_seed(17)
+    swept = []
+    for case in cases:
+        if "chunk" not in case["name"]:
+            continue
+        m_all, width = case["x"].shape[0], case["cfg"].num_levels * 4
+        for m in (2**16, 98304, 2**17, 196608, 2**18, 2**19, m_all):
+            g = torch.empty((m, width), device=dev)
+            swept.append(dict(case, x=case["x"][:m].contiguous(),
+                              g=g.uniform_(-1, 1, generator=gen),
+                              name=f"{case['backend']}: the first {m} rows "
+                                   f"of the real chunk"))
+        half = case["table"][:, :2].contiguous()
+        for m in (2**17, 196608, 2**18, 2**19, m_all):
+            swept.append(dict(case, table=half, g=None,
+                              x=case["x"][:m].contiguous(),
+                              name=f"{case['backend']}: the first {m} rows "
+                                   f"of the real chunk, F=2"))
+        swept.append(dict(grid_queries[case["backend"]],
+                          backend=case["backend"],
+                          name=f"{case['backend']}: the first query chunk of "
+                               f"a full grid update"))
+    for case in swept:
+        cfg, t, x, g = case["cfg"], case["table"], case["x"], case["g"]
+        with torch.no_grad():
+            fwd = in_turns(lambda: time_device_ms(
+                lambda: hash_encode(t, x, cfg)))
+            bwd = None if g is None else in_turns(lambda: time_device_ms(
+                lambda: hash_encode_bwd(g, x, cfg, t.shape[0])))
+        out_mib = x.shape[0] * cfg.num_levels * t.shape[1] * 4 / 2**20
+        print(f"[hash sizes] {case['name']} (M={x.shape[0]}, F={t.shape[1]}, "
+              f"output {out_mib:.1f} MiB), ms: " + "; ".join(
+                  f"{name}: fwd {sum(fwd[name]) / 2:.4f}"
+                  + ("" if bwd is None else f" bwd {sum(bwd[name]) / 2:.4f}")
+                  for name in names))
+
+    # the paths' own times, tree and baselines in turns: ms per train step
+    # (host clock over 32 steps of the trained state, ending in a sync) and
+    # seconds per 800x800 view (render_image's own clock)
+    def step_ms(tr, n=32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.train_step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def view_s(viewer):
+        viewer.render_image(ds800.poses[0], ds800.h, ds800.w)
+        return viewer.render_stats[-1]["seconds"]
+
+    for backend, tr in trainers.items():
+        step_ms(tr, 4)
+        view_s(viewers[backend])
+        st = in_turns(lambda: step_ms(tr))
+        vw = in_turns(lambda: view_s(viewers[backend]))
+        for name in names:
+            print(f"[hash path] {backend}, {name}: "
+                  f"{np.mean(st[name]):.3f} ms per train step "
+                  f"{[round(v, 3) for v in st[name]]}, "
+                  f"{np.mean(vw[name]):.4f} s per 800x800 view "
+                  f"{[round(v, 4) for v in vw[name]]}")
 
 
 def pth_round_trip(tr, ws):

@@ -74,15 +74,18 @@
 #include <cuda_runtime.h>
 #include <climits>
 
+#include "grid_tile.cuh"
 #include "grid_vec.cuh"
 
 namespace {
 
-using grid::add;
-using grid::atomic_add;
+using grid::allow_smem;
 using grid::axpy;
-using grid::scaled;
-using grid::shfl_down;
+using grid::kFullMask;
+using grid::load_positions;
+using grid::pick_split;
+using grid::scatter_runs;
+using grid::tile_pitch;
 using grid::Vec;
 using grid::zero;
 
@@ -92,7 +95,6 @@ constexpr int kSplit = 4;  // warps per 32-sample group, level-interleaved
 // A batch of fewer tiles than this (about four rounds of blocks on 132 SMs)
 // is cut into shorter tiles with more warps per sample group.
 constexpr long long kFewBlocks = 1024;
-constexpr unsigned kFullMask = 0xffffffffu;
 
 struct LevelParams {
   float scale[kMaxLevels];   // fractional interpolation scale base*g^l - 1
@@ -141,9 +143,7 @@ __device__ __forceinline__ void corners(const float x3[3], int l,
 }
 
 // Shared memory of one block: the feature tile [tile][pitch] of F-wide
-// vectors (pitch = levels | 1), then x [tile][3] and valid [tile].
-__host__ __device__ constexpr int tile_pitch(int levels) { return levels | 1; }
-
+// vectors (pitch = tile_pitch(levels)), then x [tile][3] and valid [tile].
 size_t smem_bytes(int levels, int f_dim, int tile) {
   return (size_t)tile * tile_pitch(levels) * f_dim * sizeof(float) +
          (size_t)tile * 3 * sizeof(float) + tile;
@@ -156,11 +156,7 @@ __device__ __forceinline__ bool load_samples(
     const float* __restrict__ x, const unsigned char* __restrict__ valid,
     long long s0, long long m, int tile, float* xs, unsigned char* vs,
     int* n) {
-  const long long left = m - s0;
-  *n = left < tile ? (int)left : tile;
-  for (int i = threadIdx.x; i < 3 * *n; i += kThreads) {
-    xs[i] = __ldg(x + 3 * s0 + i);
-  }
+  *n = load_positions(x, s0, m, tile, xs);
   int any = 0;
   for (int i = threadIdx.x; i < tile; i += kThreads) {
     const unsigned char v =
@@ -267,28 +263,7 @@ halo_encode_bwd_kernel(const float* __restrict__ x,
     const int p0 = __shfl_up_sync(kFullMask, r0, 1);
     const int p7 = __shfl_up_sync(kFullMask, row[7], 1);
     const bool head = lane == 0 || r0 != p0 || row[7] != p7;
-    const unsigned heads = __ballot_sync(kFullMask, head);
-    if (heads == kFullMask) {
-      if (ok) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) atomic_add(tab + row[c], scaled(w[c], gl));
-      }
-      continue;
-    }
-    // my run ends before the next head above my lane
-    const unsigned above = lane == 31 ? 0u : heads & (kFullMask << (lane + 1));
-    const int end = above ? __ffs(above) - 1 : 32;
-    const unsigned longest =
-        __reduce_max_sync(kFullMask, head ? (unsigned)(end - (int)lane) : 0u);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      V u = scaled(w[c], gl);
-      for (unsigned d = 1; d < longest; d <<= 1) {
-        const V o = shfl_down(u, (int)d);
-        if ((int)(lane + d) < end) add(u, o);
-      }
-      if (head && ok) atomic_add(tab + row[c], u);
-    }
+    scatter_runs(tab, row, w, gl, ok, head, lane);
   }
 }
 
@@ -321,27 +296,13 @@ int setup(long long m, int levels, int f_dim, int period, long long t_rows,
   }
   la->log2p = 0;
   while ((1 << la->log2p) < period) ++la->log2p;
-  int split = 1;  // a power of two, at most `levels`
-  while (2 * split <= kSplit && 2 * split <= levels) split *= 2;
-  while (kThreads / split > 32 && 2 * split <= levels &&
-         (m + kThreads / split - 1) / (kThreads / split) < kFewBlocks) {
-    split *= 2;
-  }
-  la->tile = kThreads / split;
+  la->tile = kThreads / pick_split(m, levels, 1, kThreads, kSplit, kFewBlocks);
   const long long n = (m + la->tile - 1) / la->tile;
   if (n > INT_MAX) return (int)cudaErrorInvalidValue;
   la->blocks = (unsigned)n;
   la->smem = smem_bytes(levels, f_dim, la->tile);
   la->stride_v = row_stride / f_dim;
   return 0;
-}
-
-// Dynamic shared memory above 48 KB must be asked for once per kernel.
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace

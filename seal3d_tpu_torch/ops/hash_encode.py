@@ -123,7 +123,13 @@ def _level_arrays(cfg: HashGridConfig):
 def _entry(name: str):
     from seal3d_tpu_torch.runtime.build import load_library
 
-    fn = getattr(load_library(), name)
+    return bind_entry(load_library(), name)
+
+
+def bind_entry(lib: ctypes.CDLL, name: str):
+    """The C entry `name` (hash_encode_fwd or hash_encode_bwd) of a build of
+    csrc/hash_encode.cu, with its argument types set."""
+    fn = getattr(lib, name)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, p, p, i64, i32, i32, i64, p, p, p, p, p, i32, i32, p]
     fn.restype = ctypes.c_int

@@ -13,8 +13,15 @@ mode). The forward differs from the plain version only by summation order:
 1e-5 absolute. The backward sums with fp32 atomics in an order that changes
 from run to run (the plain index_add_ on the card is an atomic scatter too):
 1e-5 of the largest gradient entry.
+
+The kernels give a warp 32 consecutive samples, sum runs of lanes in one
+cell before the atomics, cut the batch into tiles whose length depends on
+its size, and walk the levels in groups: the cases at the end feed them the
+ray-ordered inputs of tests/test_torch_hash_cases.py and batch sizes around
+every switch.
 """
 
+import test_torch_hash_cases as hash_cases
 import numpy as np
 import pytest
 import torch
@@ -166,3 +173,79 @@ def test_hashgrid_encode_dispatches_to_the_kernel(cuda_device, backend):
     assert multilevel_lookup.launches == before5 + 1
     ref5 = hash_encode_plain(tab5, x, k5).reshape(100, -1)
     assert float((out5 - ref5).abs().max()) <= 1e-5
+
+
+def _check_both(cfg, x, f, device):
+    """Forward <= 1e-5 of plain and backward within BWD_RTOL of the largest
+    entry of the plain version fed a float64 cotangent, on positions x."""
+    rng = np.random.default_rng(x.shape[0] + f)
+    n, levels = cfg.total_params, cfg.num_levels
+    tab = torch.from_numpy(rng.uniform(-1, 1, (n, f))
+                           .astype(np.float32)).to(device)
+    g = torch.from_numpy(rng.uniform(-1, 1, (x.shape[0], levels * f))
+                         .astype(np.float32)).to(device)
+    x = torch.from_numpy(x).to(device)
+    with torch.no_grad():
+        out = hash_encode(tab, x, cfg)
+        grad = hash_encode_bwd(g, x, cfg, n)
+        torch.cuda.synchronize()
+        ref = hash_encode_plain(tab, x, cfg)
+        exact = hash_encode_bwd_plain(g.double(), x, cfg, n)
+    assert out.shape == ref.shape == (x.shape[0], levels, f)
+    assert grad.shape == (n, f)
+    if x.shape[0] == 0:
+        assert float(grad.abs().max()) == 0.0
+        return
+    assert float((out - ref).abs().max()) <= 1e-5
+    scale = float(exact.abs().max())
+    assert scale > 0
+    assert float((grad - exact).abs().max()) <= BWD_RTOL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", sorted(LAYOUTS))
+@pytest.mark.parametrize("case", sorted(hash_cases.CASES))
+def test_hash_runs_and_collisions(cuda_device, backend, case):
+    """Ray-ordered samples: all in one coarse cell (every warp one run on
+    the coarse levels), runs of 24 that straddle warp edges on every level,
+    and cells whose corners 0 collide in the hash (equal rows in
+    neighbouring lanes, different cells), F=4 and F=2."""
+    cfg = _cfg(backend)
+    x = hash_cases.CASES[case](cfg.level_params)
+    for f in (4, 2):
+        _check_both(cfg, x, f, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", sorted(LAYOUTS))
+@pytest.mark.parametrize("m", [0, 1, 31, 33, 3001, 150_001, 300_007])
+def test_hash_batch_sizes(cuda_device, backend, m):
+    """M = 0 (no launch), 1, either side of a warp, not a multiple of any
+    tile, and batches under and over the kernels' switches: to longer tiles
+    (from 1024 blocks: 32,768 to 524,288 samples by layout and width) and,
+    in the forward, from the direct kernel to the tiles (above 81,920
+    samples at 16 levels), F=4 and F=2."""
+    cfg = _cfg(backend)
+    x = np.random.default_rng(m).uniform(0, 1, (m, 3)).astype(np.float32)
+    before = hash_encode.launches, hash_encode_bwd.launches
+    _check_both(cfg, x, 4, cuda_device)
+    after = hash_encode.launches, hash_encode_bwd.launches
+    assert after == tuple(b + (m > 0) for b in before)
+    _check_both(cfg, x, 2, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", sorted(LAYOUTS))
+@pytest.mark.parametrize("log2_t", [12, 19, 20, 21])
+def test_hash_level_groups(cuda_device, backend, log2_t):
+    """The backward walks the levels in groups of at most 16 MiB of table:
+    at F=4 all levels in one group (T=2^12), several levels a group (2^19),
+    a group per hashed level (2^20), and levels larger than a group (2^21);
+    the forward keeps one group. Ray-ordered runs and random points."""
+    cfg = HashGridConfig(num_levels=16, log2_hashmap_size=log2_t,
+                         backend=backend)
+    x = np.concatenate([
+        hash_cases.one_coarse_cell(cfg.level_params),
+        np.random.default_rng(log2_t).uniform(0, 1, (70_001, 3))
+        .astype(np.float32)])
+    _check_both(cfg, x, 4, cuda_device)

@@ -13,11 +13,16 @@ References and tolerances:
 - the JAX 'pallas' backend through the interpreted K3, whose forward casts
   the table to bf16 and whose backward rounds each g*w to bf16: 2e-2.
 The configs put level 0 dense (17^3 < T), so the padded and native layouts
-differ there.
+differ there. The inputs of tests/test_torch_hash_cases.py (ray-ordered runs
+in one cell, runs across warp edges, cells whose corners collide in the
+hash; the `cuda` tests feed the kernels the same) go through the plain
+versions against the JAX 'xla' and 'bucket' backends at the tolerances
+above.
 """
 
 import dataclasses
 
+import test_torch_hash_cases as hash_cases
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -214,3 +219,46 @@ def test_convert_table_layout_matches_jax(src, dst):
     with pytest.raises(ValueError, match="hashmap"):
         thg.convert_table_layout(out, tdst,
                                  dataclasses.replace(tsrc, log2_hashmap_size=12))
+
+
+@pytest.mark.parametrize("case", sorted(hash_cases.CASES))
+@pytest.mark.parametrize("jbackend", ["xla", "bucket"])
+def test_run_and_collision_inputs_match_jax(case, jbackend):
+    """Samples in long runs inside one cell, runs that straddle warp edges
+    and cells with colliding corners: the port's 'bucket' encode (plain
+    version) against the JAX 'xla' backend (autodiff gradient) and 'bucket'
+    backend (interpreted K2), fp32: forward 1e-6, table gradient rtol 1e-4 /
+    atol 1e-5 of a gradient scaled to a largest entry of 1."""
+    jc, tc = _cfgs(**SMALL, backend=jbackend)
+    _, bc = _cfgs(**SMALL, backend="bucket")
+    assert bc.level_params == tc.level_params      # one native layout
+    x = hash_cases.CASES[case](bc.level_params)
+    rng = np.random.default_rng(9)
+    tab = rng.uniform(-0.5, 0.5, (bc.total_params, 4)).astype(np.float32)
+    g = rng.normal(size=(x.shape[0], 4 * 4)).astype(np.float32)
+
+    def jloss(tb):
+        return (jhg.hashgrid_encode(tb, jnp.asarray(x), jc) * g).sum()
+
+    ref = np.asarray(jhg.hashgrid_encode(jnp.asarray(tab), jnp.asarray(x), jc))
+    gref = np.asarray(jax.grad(jloss)(jnp.asarray(tab)))
+    t = torch.from_numpy(tab).requires_grad_()
+    out = thg.hashgrid_encode(t, torch.from_numpy(x), bc)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-6, atol=1e-6)
+    scale = float(np.abs(gref).max())
+    assert scale > 0
+    np.testing.assert_allclose(t.grad.numpy() / scale, gref / scale,
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_colliding_cells_share_a_row():
+    """The collision input is what it says: in each pair the two cells
+    differ and their corners 0 index one row of the finest level, by the
+    port's own `corner_indices_weights`."""
+    _, tc = _cfgs(**SMALL, backend="bucket")
+    x, level, cells = hash_cases.colliding_cells(tc.level_params)
+    idx, _ = thg.corner_indices_weights(torch.from_numpy(x), tc)
+    rows = idx[:, level, 0].reshape(len(cells), 4, -1)   # a, b, a, b runs
+    assert (rows == rows[:, :1, :1]).all()
+    assert (cells[:, 0] != cells[:, 1]).any(-1).all()
