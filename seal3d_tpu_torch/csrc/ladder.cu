@@ -13,28 +13,35 @@
 // `pack_tables`: 512 B, pool^3 / 8 B and the 256 KiB bitfield), read with
 // plain loads, and there is no padding.
 //
-// What bounds it on an H100: neither bytes nor arithmetic. A chunk of 32,768
-// rays reads 0.8 MB of rays, writes 2.5 MB of outputs (keep [N, CG] bytes
-// dominate) and does ~160 dependent byte loads per ray into tables that sit
-// in L1/L2, so the time is load latency on ~128 blocks, far from either
-// roof. Its worth is the launch count: it stands for the ~150 eager
-// elementwise launches of near_far_from_aabb + coarse_tighten + group_plan +
-// the demand probe, on a render path that is bound by launches.
+// What bounds it on an H100: neither bytes nor floating-point operations. A
+// chunk of 32,768 rays reads 0.8 MB of rays and writes 2.5 MB of outputs
+// (keep [N, CG] bytes dominate). Each ray's coarse steps and group tests are
+// independent of one another; one thread per ray walks them one after the
+// other, each a chain of divisions and a dependent byte load, so that design
+// is bound by latency. With a warp per ray what is left is instruction
+// issue: a cell coordinate costs an IEEE division and its rounding steps,
+// ~15 cells a ray per lane, and each ray's slab test runs on all 32 lanes.
 //
-// Design: one thread per ray, two sequential loops (coarse steps, groups).
-// Every product, sum and quotient that decides a cell index or a comparison
-// uses an explicit round-to-nearest intrinsic, so nvcc contracts no FMA and
-// substitutes no fast division: the kernel rounds like its plain PyTorch
-// version (ops/ladder.py `ladder_plan_plain`) and like the port's
-// `group_plan`, expression by expression.
+// Design: one warp per ray, so that a ray's steps run side by side. Lane i
+// takes coarse steps i, i+32, ... and group tests j = i, i+32, ...; the first
+// and last occupied coarse step come from __ballot_sync masks, keep is stored
+// as CG consecutive bytes per ray (coalesced), and the demand is a warp sum
+// of integers ceil(members) <= g, exact in any order, so it equals the
+// sequential float sum. Warps walk the rays grid-stride from a grid of as
+// many blocks as fit the card at once. Every product, sum and quotient that
+// decides a cell index or a comparison uses an explicit round-to-nearest
+// intrinsic, so nvcc contracts no FMA and substitutes no fast division: the
+// kernel rounds like its plain PyTorch version (ops/ladder.py
+// `ladder_plan_plain`), expression by expression, and t0, far, keep and cnt
+// are bit-identical to it.
 
 #include <cuda_runtime.h>
-#include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 // Spread the low 7 bits of v to every third bit.
 __device__ __forceinline__ uint32_t expand7(uint32_t v) {
@@ -49,6 +56,8 @@ __device__ __forceinline__ uint32_t morton7(int x, int y, int z) {
          (expand7((uint32_t)z) << 2);
 }
 
+// Bit idx of a bit-packed table, through L1 (a copy of the coarse and pooled
+// views in each block's shared memory was 1-7% slower: PERF.md, section 6).
 __device__ __forceinline__ bool bit_of(const uint8_t* __restrict__ tab,
                                        uint32_t idx) {
   return (__ldg(tab + (idx >> 3)) >> (idx & 7u)) & 1u;
@@ -83,76 +92,103 @@ ladder_plan_kernel(const float* __restrict__ rays_o,
                    float* __restrict__ cnt_out, long long n, float bound,
                    float min_near, float dt_min, int cg, int g, int n_coarse,
                    int pool) {
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const float ox = __ldg(rays_o + 3 * r), oy = __ldg(rays_o + 3 * r + 1),
-              oz = __ldg(rays_o + 3 * r + 2);
-  const float dx = __ldg(rays_d + 3 * r), dy = __ldg(rays_d + 3 * r + 1),
-              dz = __ldg(rays_d + 3 * r + 2);
-
-  // slab test; a miss gets near = far = 1e9
-  float l0, u0, l1, u1, l2, u2;
-  slab_axis(ox, dx, __ldg(aabb + 0), __ldg(aabb + 3), &l0, &u0);
-  slab_axis(oy, dy, __ldg(aabb + 1), __ldg(aabb + 4), &l1, &u1);
-  slab_axis(oz, dz, __ldg(aabb + 2), __ldg(aabb + 5), &l2, &u2);
-  const float tmin = fmaxf(fmaxf(l0, l1), l2);
-  const float tmax = fminf(fminf(u0, u1), u2);
-  float near = fmaxf(tmin, min_near);
-  float far = fmaxf(tmax, __fadd_rn(near, 1e-6f));
-  if (tmax < tmin) {
-    near = 1e9f;
-    far = 1e9f;
-  }
-
-  // coarse tighten against the 16^3 view
-  const float dt_c = __fdiv_rn(__fsub_rn(far, near), (float)n_coarse);
-  int first = n_coarse, last = -1;
-  for (int i = 0; i < n_coarse; ++i) {
-    const float tc = __fadd_rn(near, __fmul_rn((float)i + 0.5f, dt_c));
-    const int cx = cell_of(__fadd_rn(ox, __fmul_rn(tc, dx)), bound, 16.0f);
-    const int cy = cell_of(__fadd_rn(oy, __fmul_rn(tc, dy)), bound, 16.0f);
-    const int cz = cell_of(__fadd_rn(oz, __fmul_rn(tc, dz)), bound, 16.0f);
-    if (bit_of(coarse16, morton7(cx, cy, cz)) && tc < far) {
-      if (i < first) first = i;
-      last = i;
-    }
-  }
-  float near2 = far, far2 = far;
-  if (last >= 0) {
-    near2 = fmaxf(__fadd_rn(near, __fmul_rn((float)first - 1.0f, dt_c)), near);
-    far2 = fminf(__fadd_rn(near, __fmul_rn((float)last + 2.0f, dt_c)), far);
-  }
-  t0_out[r] = near2;
-  far_out[r] = far2;
-
-  // group midpoints against the dilated pooled view; fine demand bound
-  const float n_cand = fmaxf(__fdiv_rn(__fsub_rn(far2, near2), dt_min), 0.0f);
+  const int lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * kWarps;
+  const float lo_x = __ldg(aabb + 0), lo_y = __ldg(aabb + 1),
+              lo_z = __ldg(aabb + 2), hi_x = __ldg(aabb + 3),
+              hi_y = __ldg(aabb + 4), hi_z = __ldg(aabb + 5);
   const float fg = (float)g, fp = (float)pool;
   const float mid = __fmul_rn(fg - 1.0f, 0.5f);
   const float mb = fminf(1.0f, bound);
-  uint8_t* keep_row = keep_out + r * cg;
-  float cnt = 0.0f;
-  for (int j = 0; j < cg; ++j) {
-    const float fjg = __fmul_rn((float)j, fg);
-    const float tm = __fadd_rn(near2, __fmul_rn(__fadd_rn(fjg, mid), dt_min));
-    const int cx = cell_of(__fadd_rn(ox, __fmul_rn(tm, dx)), bound, fp);
-    const int cy = cell_of(__fadd_rn(oy, __fmul_rn(tm, dy)), bound, fp);
-    const int cz = cell_of(__fadd_rn(oz, __fmul_rn(tm, dz)), bound, fp);
-    const uint32_t lin = (uint32_t)((cx * pool + cy) * pool + cz);
-    const float tf = __fadd_rn(near2, __fmul_rn(fjg, dt_min));
-    const bool keep = bit_of(pooled, lin) && tf < far2;
-    keep_row[j] = keep ? 1 : 0;
-    if (keep) {
-      const int fx = cell_of(__fadd_rn(ox, __fmul_rn(tf, dx)), mb, 128.0f);
-      const int fy = cell_of(__fadd_rn(oy, __fmul_rn(tf, dy)), mb, 128.0f);
-      const int fz = cell_of(__fadd_rn(oz, __fmul_rn(tf, dz)), mb, 128.0f);
-      if (bit_of(fine, morton7(fx, fy, fz))) {
-        const float members = fminf(fmaxf(__fsub_rn(n_cand, fjg), 0.0f), fg);
-        cnt = __fadd_rn(cnt, ceilf(members));
+
+  for (long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+       r < n; r += stride) {
+    // every lane loads the same ray (one broadcast transaction)
+    const float ox = __ldg(rays_o + 3 * r), oy = __ldg(rays_o + 3 * r + 1),
+                oz = __ldg(rays_o + 3 * r + 2);
+    const float dx = __ldg(rays_d + 3 * r), dy = __ldg(rays_d + 3 * r + 1),
+                dz = __ldg(rays_d + 3 * r + 2);
+
+    // slab test; a miss gets near = far = 1e9
+    float l0, u0, l1, u1, l2, u2;
+    slab_axis(ox, dx, lo_x, hi_x, &l0, &u0);
+    slab_axis(oy, dy, lo_y, hi_y, &l1, &u1);
+    slab_axis(oz, dz, lo_z, hi_z, &l2, &u2);
+    const float tmin = fmaxf(fmaxf(l0, l1), l2);
+    const float tmax = fminf(fminf(u0, u1), u2);
+    float near = fmaxf(tmin, min_near);
+    float far = fmaxf(tmax, __fadd_rn(near, 1e-6f));
+    if (tmax < tmin) {
+      near = 1e9f;
+      far = 1e9f;
+    }
+
+    // coarse tighten against the 16^3 view: lane i takes steps i, i+32, ...
+    const float dt_c = __fdiv_rn(__fsub_rn(far, near), (float)n_coarse);
+    int first = -1, last = -1;
+    for (int base = 0; base < n_coarse; base += 32) {
+      const int i = base + lane;
+      bool hit = false;
+      if (i < n_coarse) {
+        const float tc = __fadd_rn(near, __fmul_rn((float)i + 0.5f, dt_c));
+        if (tc < far) {
+          const int cx =
+              cell_of(__fadd_rn(ox, __fmul_rn(tc, dx)), bound, 16.0f);
+          const int cy =
+              cell_of(__fadd_rn(oy, __fmul_rn(tc, dy)), bound, 16.0f);
+          const int cz =
+              cell_of(__fadd_rn(oz, __fmul_rn(tc, dz)), bound, 16.0f);
+          hit = bit_of(coarse16, morton7(cx, cy, cz));
+        }
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, hit);
+      if (m != 0u) {
+        if (first < 0) first = base + __ffs(m) - 1;
+        last = base + 31 - __clz(m);
       }
     }
+    float near2 = far, far2 = far;
+    if (last >= 0) {
+      near2 = fmaxf(__fadd_rn(near, __fmul_rn((float)first - 1.0f, dt_c)),
+                    near);
+      far2 = fminf(__fadd_rn(near, __fmul_rn((float)last + 2.0f, dt_c)), far);
+    }
+    if (lane == 0) {
+      t0_out[r] = near2;
+      far_out[r] = far2;
+    }
+
+    // group midpoints against the dilated pooled view; fine demand bound
+    const float n_cand =
+        fmaxf(__fdiv_rn(__fsub_rn(far2, near2), dt_min), 0.0f);
+    uint8_t* keep_row = keep_out + r * cg;
+    unsigned cnt = 0;
+    for (int j = lane; j < cg; j += 32) {
+      const float fjg = __fmul_rn((float)j, fg);
+      const float tf = __fadd_rn(near2, __fmul_rn(fjg, dt_min));
+      bool keep = false;
+      if (tf < far2) {
+        const float tm =
+            __fadd_rn(near2, __fmul_rn(__fadd_rn(fjg, mid), dt_min));
+        const int cx = cell_of(__fadd_rn(ox, __fmul_rn(tm, dx)), bound, fp);
+        const int cy = cell_of(__fadd_rn(oy, __fmul_rn(tm, dy)), bound, fp);
+        const int cz = cell_of(__fadd_rn(oz, __fmul_rn(tm, dz)), bound, fp);
+        keep = bit_of(pooled, (uint32_t)((cx * pool + cy) * pool + cz));
+      }
+      keep_row[j] = keep ? 1 : 0;
+      if (keep) {
+        const int fx = cell_of(__fadd_rn(ox, __fmul_rn(tf, dx)), mb, 128.0f);
+        const int fy = cell_of(__fadd_rn(oy, __fmul_rn(tf, dy)), mb, 128.0f);
+        const int fz = cell_of(__fadd_rn(oz, __fmul_rn(tf, dz)), mb, 128.0f);
+        if (bit_of(fine, morton7(fx, fy, fz))) {
+          cnt += (unsigned)ceilf(
+              fminf(fmaxf(__fsub_rn(n_cand, fjg), 0.0f), fg));
+        }
+      }
+    }
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    if (lane == 0) cnt_out[r] = (float)cnt;
   }
-  cnt_out[r] = cnt;
 }
 
 }  // namespace
@@ -169,13 +205,31 @@ extern "C" int ladder_plan(const float* rays_o, const float* rays_d,
                            float dt_min, int cg, int g, int n_coarse, int pool,
                            void* stream) {
   if (n < 0 || cg < 1 || g < 1 || n_coarse < 1 || (pool != 32 && pool != 64) ||
-      !(bound > 0.0f) || !(dt_min > 0.0f)) {
+      !(bound > 0.0f) || !(dt_min > 0.0f) ||
+      (long long)cg * g >= (1ll << 24)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return 0;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  ladder_plan_kernel<<<(unsigned)blocks, kThreads, 0,
+  // as many blocks as are resident at once (once per device), fewer when
+  // there are fewer rays than their warps
+  static int resident[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, ladder_plan_kernel, kThreads, 0);
+    }
+    if (err != cudaSuccess) return (int)err;
+    resident[dev] = sms * per_sm;
+  }
+  const long long want = (n + kWarps - 1) / kWarps;
+  const int blocks = (int)(want < resident[dev] ? want : resident[dev]);
+  ladder_plan_kernel<<<blocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       rays_o, rays_d, aabb, coarse16, pooled, fine, t0, far, keep, cnt, n,
       bound, min_near, dt_min, cg, g, n_coarse, pool);

@@ -24,7 +24,7 @@ MXU matmuls because a TPU cannot gather. Here the tables are bits
 (`pack_tables`): the coarse view 512 bytes (Morton order), the dilated
 pooled view pool^3 / 8 bytes (x-major linear order) and the bitfield itself
 (256 KiB), all of which stay in L1/L2. The CUDA kernel (csrc/ladder.cu) runs
-one thread per ray with no tile padding, so the reference's pad rays have no
+one warp per ray with no tile padding, so the reference's pad rays have no
 counterpart. `ladder_plan_plain` writes the same expressions over [N] and
 [N, CG] tensors in the same order: kept groups and cells depend on the exact
 float32 rounding of the cell formulas.
@@ -169,10 +169,16 @@ ladder_plan.launches = 0
 
 
 @functools.cache
-def _entry():
+def _entry(name: str):
     from seal3d_tpu_torch.runtime.build import load_library
 
-    fn = load_library().ladder_plan
+    return bind_entry(load_library(), name)
+
+
+def bind_entry(lib: ctypes.CDLL, name: str):
+    """The C entry `name` (ladder_plan) of a build of csrc/ladder.cu, with
+    its argument types set."""
+    fn = getattr(lib, name)
     p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float)
     fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, f32, f32, f32, i32,
@@ -204,19 +210,18 @@ def _launch(rays_o, rays_d, coarse16, pooled_dil, fine, aabb, bound,
     if aabb.device != dev or aabb.shape != (6,):
         raise ValueError(f"ladder_plan aabb must be a [6] tensor on {dev}")
     aabb = aabb.to(torch.float32).contiguous()
-    t0 = torch.empty((n,), dtype=torch.float32, device=dev)
-    far = torch.empty_like(t0)
-    cnt = torch.empty_like(t0)
+    # one allocation for the three [N] outputs, one for keep
+    t0, far, cnt = torch.empty((3, n), dtype=torch.float32, device=dev)
     keep = torch.empty((n, cg), dtype=torch.bool, device=dev)
     if n == 0:
         return t0, far, keep, cnt
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry()(rays_o.data_ptr(), rays_d.data_ptr(), aabb.data_ptr(),
-                      coarse16.data_ptr(), pooled_dil.data_ptr(),
-                      fine.data_ptr(), t0.data_ptr(), far.data_ptr(),
-                      keep.data_ptr(), cnt.data_ptr(), n, bound, min_near,
-                      dt_min, cg, group, n_coarse, pool, stream)
+        rc = _entry("ladder_plan")(
+            rays_o.data_ptr(), rays_d.data_ptr(), aabb.data_ptr(),
+            coarse16.data_ptr(), pooled_dil.data_ptr(), fine.data_ptr(),
+            t0.data_ptr(), far.data_ptr(), keep.data_ptr(), cnt.data_ptr(),
+            n, bound, min_near, dt_min, cg, group, n_coarse, pool, stream)
     if rc != 0:
         raise RuntimeError(f"ladder_plan launch failed: CUDA error {rc}")
     ladder_plan.launches += 1

@@ -114,7 +114,13 @@ multilevel_lookup_bwd.launches = 0
 def _entry(name: str):
     from seal3d_tpu_torch.runtime.build import load_library
 
-    fn = getattr(load_library(), name)
+    return bind_entry(load_library(), name)
+
+
+def bind_entry(lib: ctypes.CDLL, name: str):
+    """The C entry `name` (multilevel_lookup_fwd or multilevel_lookup_bwd)
+    of a build of csrc/lookup.cu, with its argument types set."""
+    fn = getattr(lib, name)
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, p, p, i32, i64, i64, i32, p]
     fn.restype = ctypes.c_int

@@ -502,10 +502,11 @@ class Trainer:
         self._chunk_layout_cache = (key, out)
         return out
 
-    def _eval_demand(self, bitfield, rays_o, rays_d, occ_aabb,
+    def _eval_demand(self, bitfield, rays_o, rays_d, aabb,
                      n_valid: int, ladder_tables=None) -> torch.Tensor:
-        """[2] int64 (fine sample demand, kept-group demand) of one chunk,
-        pad rays at index >= n_valid masked out. Closed form at group
+        """[2] int64 (fine sample demand, kept-group demand) of one chunk
+        marched in `aabb` (`_march_aabb`, built once per view), pad rays at
+        index >= n_valid masked out. Closed form at group
         granularity: occupied group reps x members inside the tightened
         interval, an upper bound of the fine repack's kept members. Where
         the eval options take the ladder kernel K4 (`tl_kernel_ok`), the
@@ -515,9 +516,8 @@ class Trainer:
                 self.cfg.eval_budget_per_ray, None):
             plan, cnt = ladder_plan_kernel(
                 rays_o, rays_d, bitfield, eo.bound, eo.max_steps,
-                eo.num_candidates, eo.tl_group, eo.min_near,
-                self._march_aabb(occ_aabb), eo.coarse_steps, eo.tl_pool,
-                tables=ladder_tables)
+                eo.num_candidates, eo.tl_group, eo.min_near, aabb,
+                eo.coarse_steps, eo.tl_pool, tables=ladder_tables)
             rok = torch.arange(rays_o.shape[0], device=rays_o.device) < n_valid
             return torch.stack([
                 torch.where(rok, cnt, 0.0).sum().to(torch.int64),
@@ -532,7 +532,7 @@ class Trainer:
                           cascades=eo.cascades, max_steps=eo.max_steps,
                           k=self.cfg.eval_budget_per_ray,
                           num_candidates=eo.num_candidates, group=g,
-                          min_near=eo.min_near, aabb=self._march_aabb(occ_aabb),
+                          min_near=eo.min_near, aabb=aabb,
                           coarse_steps=eo.coarse_steps, kg=-1, pool=eo.tl_pool)
         gi = torch.arange(eo.num_candidates // g, dtype=torch.float32,
                           device=rays_o.device)
@@ -600,8 +600,8 @@ class Trainer:
         if self._adaptive:
             # all chunks' demands, then ONE device -> host copy
             cnts = torch.stack([
-                self._eval_demand(st.occ.bitfield, ro_c[ci], rd_c[ci],
-                                  st.occ.occ_aabb, int(nv[ci]), tables)
+                self._eval_demand(st.occ.bitfield, ro_c[ci], rd_c[ci], aabb,
+                                  int(nv[ci]), tables)
                 for ci in range(n_chunks)]).cpu().numpy()
             for ci in range(n_chunks):
                 fine, grp = int(cnts[ci, 0]), int(cnts[ci, 1])

@@ -8,7 +8,10 @@ its occupancy bitfield, the -O eval point (max_steps 512, 256 candidates,
 group 4, 32 coarse steps, pool 64). The interpreted kernel runs under
 jax.jit, whose FMA contraction can move a borderline group across a cell:
 keep may differ in < 1e-3 of the entries (the reference's own bound);
-against the port's eager `group_plan` it is exact.
+against the port's eager `group_plan` it is exact. Other statics (coarse
+steps and group counts that are not multiples of a warp, both pooled views)
+on the rays of tests/test_torch_ladder_cuda.py go against the JAX package's
+eager XLA `group_plan`.
 """
 
 import dataclasses
@@ -22,6 +25,7 @@ import torch
 from seal3d_tpu.data.rays import get_full_rays
 from seal3d_tpu.data.synthetic import SyntheticScene
 from seal3d_tpu.models import ngp as jngp
+from seal3d_tpu.ops import raymarch as jrm
 from seal3d_tpu.ops.pallas import ladder as jladder
 from seal3d_tpu.render.occupancy import occupancy_init, occupancy_update
 from seal3d_tpu.render.renderer import RenderOptions as JOpts
@@ -35,6 +39,7 @@ from seal3d_tpu_torch.render.renderer import render_rays as trender_rays
 from seal3d_tpu_torch.train.checkpoint import params_from_jax
 from seal3d_tpu_torch.train.trainer import TrainConfig as TCfg
 from seal3d_tpu_torch.train.trainer import Trainer as TTrainer
+from test_torch_ladder_cuda import STATICS, static_rays
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -131,6 +136,49 @@ def test_plain_equals_group_plan_and_bounds_the_fine_repack(setup):
                                                              true_kept)
 
 
+@pytest.mark.parametrize("pool", [32, 64])
+@pytest.mark.parametrize("n_coarse,cg", STATICS)
+def test_plain_statics_against_jax_group_plan(setup, n_coarse, cg, pool):
+    """t0, far and keep of the plain version against the JAX package's XLA
+    group_plan (kg=-1, coarse_steps=n_coarse), run eagerly, on rays from
+    outside, rays that miss, rays from inside the box and axis-aligned
+    rays; the demand bounds what the fine repack keeps, ray by ray.
+
+    K4 places coarse step i at near + (i + 0.5) * ((far - near) / n), the
+    XLA path at near + ((i + 0.5) / n) * (far - near): the same number when
+    n is a power of two, an ulp apart otherwise, which moves a step across
+    a coarse cell on a few rays (and their t0 or far by one coarse step).
+    So: equal everywhere at n = 32; elsewhere t0 and far equal on all but
+    0.5% of the rays, and keep equal on the rays whose t0 and far are."""
+    _, bf, *_ = setup
+    ro, rd = static_rays(2000, seed=n_coarse + pool)
+    aabb = np.array([-1, -1, -1, 1, 1, 1], np.float32)
+    kw = dict(KW, num_candidates=4 * cg, pool=pool)
+    j = jrm.group_plan(jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(bf),
+                       cascades=1, k=48, aabb=jnp.asarray(aabb),
+                       coarse_steps=n_coarse, kg=-1, **kw)
+    t0, far, keep, cnt = tladder.ladder_plan(
+        _t(ro), _t(rd), *tladder.pack_tables(_t(bf), pool), _t(aabb),
+        n_coarse=n_coarse, **kw)
+    same = (t0.numpy() == np.asarray(j.t0)) & (far.numpy()
+                                              == np.asarray(j.fars))
+    assert same.all() if n_coarse == 32 else same.mean() >= 0.995, \
+        same.mean()
+    np.testing.assert_array_equal(keep.numpy()[same], np.asarray(j.keep)[same])
+    miss = t0.numpy() == 1e9
+    assert miss.sum() >= len(ro) // 4 and not keep.numpy()[miss].any()
+    assert 0 < int(keep.sum()) < keep.numel()
+    plan = trm.GroupPlan(t0=t0, fars=far, keep=keep,
+                         stride=torch.ones(len(ro), dtype=torch.int64),
+                         dt_min=2.0 * tladder.SQRT3 / KW["max_steps"])
+    budget = len(ro) * 4 * cg      # no thinning
+    mf = trm.pack_groups_expand_fine(plan, keep, 0, _t(ro), _t(rd), _t(bf),
+                                     1.0, 1, 4, budget, budget, 4)
+    kept = torch.zeros(len(ro)).index_add_(
+        0, mf.ray_id[mf.valid].long(), torch.ones(int(mf.valid.sum())))
+    assert bool((kept <= cnt).all()) and float(kept.sum()) > 0
+
+
 def test_wrapper_refuses_other_devices_and_bad_statics(setup):
     _, bf, ro, rd, aabb = setup
     tabs = tladder.pack_tables(_t(bf), 64)
@@ -215,15 +263,15 @@ def test_eval_demand_kernel_branch_and_render_image(setup):
         trainers[on] = tr
     assert trainers[True].eval_opts.tl_kernel_ok(48, None)
     assert not trainers[False].eval_opts.tl_kernel_ok(48, None)
-    occ_aabb = trainers[True].state.occ.occ_aabb
+    aabb = trainers[True]._march_aabb(trainers[True].state.occ.occ_aabb)
     for n_valid in (len(ro), 300):
-        d_k = trainers[True]._eval_demand(_t(bf), _t(ro), _t(rd), occ_aabb,
+        d_k = trainers[True]._eval_demand(_t(bf), _t(ro), _t(rd), aabb,
                                           n_valid)
-        d_x = trainers[False]._eval_demand(_t(bf), _t(ro), _t(rd), occ_aabb,
+        d_x = trainers[False]._eval_demand(_t(bf), _t(ro), _t(rd), aabb,
                                            n_valid)
         assert int(d_k[1]) == int(d_x[1]) > 0
         assert int(d_k[0]) >= int(d_x[0]) > 0
-    full = trainers[True]._eval_demand(_t(bf), _t(ro), _t(rd), occ_aabb,
+    full = trainers[True]._eval_demand(_t(bf), _t(ro), _t(rd), aabb,
                                        len(ro))
     assert int(d_k[1]) < int(full[1])   # n_valid masked rays out
     img_k, dep_k = trainers[True].render_image(ds.poses[0], ds.h, ds.w)

@@ -8,8 +8,14 @@ without JAX, where tests/conftest.py (which imports JAX) is skipped:
 
 Without a CUDA device the tests skip (the kernel has no CPU or interpret
 mode). Kernel and plain version write the same fp32 expressions in the same
-order with no FMA contraction, so t0 and far agree to 1e-6, the kept groups
-in all but < 1e-3 of the entries (0 expected) and the demand to 1e-3.
+order with no FMA contraction, and the demand is a sum of small integers,
+exact in any order: t0, far, keep and cnt are bit-identical.
+
+`static_rays` makes, with numpy from a seed, the rays that load each branch
+of the kernel (rays from outside, rays that miss the box, rays that start
+inside it, axis-aligned rays with zero and negative-zero components); the
+CPU tests of tests/test_torch_ladder.py feed the same rays to the plain
+version and to the JAX package.
 """
 
 import numpy as np
@@ -45,13 +51,46 @@ def _scene(dev, h=96, w=96):
     return occ, rays["rays_o"].contiguous(), rays["rays_d"].contiguous()
 
 
+def static_rays(n, seed):
+    """(rays_o, rays_d) [n, 3] float32 numpy: by index mod 4, rays from
+    radius 3 towards points inside the unit box, rays along lines that pass
+    2.0 from its centre (they miss it), rays that start inside it, and
+    axis-aligned rays (the other components 0.0 or -0.0) from anywhere in
+    [-2.5, 2.5]^3."""
+    rng = np.random.default_rng(seed)
+
+    def unit(m):
+        v = rng.normal(size=(m, 3))
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    kind = np.arange(n) % 4
+    o = 3.0 * unit(n)
+    d = rng.uniform(-0.9, 0.9, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    miss = kind == 1
+    dm, p = unit(n), unit(n)
+    p -= (p * dm).sum(1, keepdims=True) * dm
+    p *= 2.0 / np.linalg.norm(p, axis=1, keepdims=True)
+    o[miss], d[miss] = (p - 3.0 * dm)[miss], dm[miss]
+    inside = kind == 2
+    o[inside] = rng.uniform(-0.8, 0.8, (n, 3))[inside]
+    d[inside] = unit(n)[inside]
+    axis = np.flatnonzero(kind == 3)
+    o[axis] = rng.uniform(-2.5, 2.5, (len(axis), 3))
+    d[axis] = np.where(rng.uniform(size=(len(axis), 3)) < 0.5, 0.0, -0.0)
+    d[axis, rng.integers(0, 3, len(axis))] = rng.choice([-1.0, 1.0],
+                                                        len(axis))
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+# (n_coarse, CG) beside the -O eval point's (32, 64), all at group 4
+STATICS = [(20, 40), (32, 64), (48, 16)]
+
+
 def _agree(a, b):
-    (t0, far, keep, cnt), (p0, pfar, pkeep, pcnt) = a, b
-    assert keep.dtype == torch.bool and keep.shape == pkeep.shape
-    assert float((t0 - p0).abs().max()) <= 1e-6
-    assert float((far - pfar).abs().max()) <= 1e-6
-    assert float((keep != pkeep).float().mean()) < 1e-3
-    assert abs(float(cnt.sum()) - float(pcnt.sum())) <= 1e-3 * float(pcnt.sum())
+    assert a[2].dtype == torch.bool and a[2].shape == b[2].shape
+    for name, x, y in zip(("t0", "far", "keep", "cnt"), a, b):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.cuda
@@ -89,6 +128,25 @@ def test_k4_random_rays_misses_and_axis_aligned(cuda_device):
     ref = ladder_plan_plain(ro, rd, *tabs, aabb, pool=64, **KW)
     _agree(out, ref)
     assert bool((out[0] == 1e9).any()) and bool(out[2].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [32, 64])
+@pytest.mark.parametrize("n_coarse,cg", STATICS)
+def test_k4_statics_and_ragged_counts(cuda_device, n_coarse, cg, pool):
+    """Coarse steps and group counts that are not multiples of the warp,
+    ray counts that are not multiples of the rays a block takes at once:
+    bit-identical to plain on all four outputs."""
+    occ, _, _ = _scene(cuda_device, 8, 8)
+    tabs = pack_tables(occ.bitfield, pool)
+    aabb = torch.tensor([-1.0, -1, -1, 1, 1, 1], device=cuda_device)
+    kw = dict(KW, n_coarse=n_coarse, num_candidates=4 * cg, pool=pool)
+    ro, rd = (torch.from_numpy(a).to(cuda_device)
+              for a in static_rays(32769, seed=n_coarse + pool))
+    for n in (1, 31, 33, 32769):
+        out = ladder_plan(ro[:n], rd[:n], *tabs, aabb, **kw)
+        _agree(out, ladder_plan_plain(ro[:n], rd[:n], *tabs, aabb, **kw))
+    assert bool((out[0] == 1e9).any()) and 0 < int(out[2].sum())
 
 
 @pytest.mark.cuda

@@ -19,6 +19,7 @@ from seal3d_tpu.ops import hashgrid as jhg
 from seal3d_tpu.ops.pallas.lookup import multilevel_lookup as jlookup
 from seal3d_tpu_torch.ops import hashgrid as thg
 from seal3d_tpu_torch.ops import lookup as tlk
+from test_torch_lookup_cuda import bwd_index_sets
 
 L, T, F, N = 2, 2**12, 2, 700
 
@@ -66,6 +67,31 @@ def test_plain_matches_interpreted_pallas_kernel():
                                atol=2e-2)
     np.testing.assert_allclose(t.grad.numpy(), jg, atol=2e-2 * 4)
     assert np.abs(jg).max() > 0.5
+
+
+@pytest.mark.parametrize("f", [2, 4])
+def test_plain_bwd_on_hot_rows_and_mixed_levels(f):
+    """multilevel_lookup_bwd_plain on the index sets the card's backward is
+    tested on (tests/test_torch_lookup_cuda.py: a hot row, a level in
+    ascending row order, dense coarse levels and a hashed one) against a
+    float64 np.add.at
+    and against JAX's fp32 `.at[rows].add`: within 1e-5 of the largest
+    entry (fp32 sums of up to 3000 terms a row, in another order)."""
+    for name, idx, t_rows, g in bwd_index_sets(f, 3000, seed=f):
+        levels = idx.shape[0]
+        rows = (idx.astype(np.int64)
+                + np.arange(levels)[:, None] * t_rows).reshape(-1)
+        out = tlk.multilevel_lookup_bwd(torch.from_numpy(g),
+                                        torch.from_numpy(idx),
+                                        levels * t_rows).numpy()
+        exact = np.zeros((levels * t_rows, f))
+        np.add.at(exact, rows, g.reshape(-1, f).astype(np.float64))
+        jx = np.asarray(jnp.zeros((levels * t_rows, f), jnp.float32)
+                        .at[jnp.asarray(rows)].add(jnp.asarray(
+                            g.reshape(-1, f))))
+        scale = np.abs(exact).max()
+        assert np.abs(out - exact).max() <= 1e-5 * scale, name
+        assert np.abs(out - jx).max() <= 1e-5 * scale, name
 
 
 def test_wrapper_checks_and_counts():

@@ -11,6 +11,13 @@ Without a CUDA device the tests skip (the kernels have no CPU or interpret
 mode). The forward copies rows: exact. The backward sums with fp32 atomics
 in an order that changes from run to run (the plain index_add_ on the card
 is an atomic scatter too): 1e-5 of the largest gradient entry.
+
+`bwd_index_sets` makes, with numpy from a seed, the index sets that load
+each branch of the backward (a hot level summed in a shared-memory window,
+rows past the window's end, one global atomic a pair elsewhere): every pair
+of a level on one row, a level in ascending row order, and in one call
+dense coarse levels and a hashed one. tests/test_torch_lookup.py feeds the
+same sets to the plain version and to the JAX package.
 """
 
 import numpy as np
@@ -25,6 +32,25 @@ from seal3d_tpu_torch.ops.lookup import (multilevel_lookup,
                                          multilevel_lookup_plain)
 
 BWD_RTOL = 1e-5
+
+
+def bwd_index_sets(f, n, seed=0):
+    """[(name, idx [L, n] int32, t_rows, g [L, n, f] float32)]: 'hot rows'
+    (T=2^12; level 0 all on row 7, a hot level that the backward sums in
+    its shared-memory window; level 1 on rows 0-2999 in ascending order, so
+    that a block's first pairs make the level look hot and later ones pass
+    the window's last row at F=4), 'mixed levels' (T=2^15: level 0 on 16^3
+    rows, level 1 on 23^3, level 2 on all T rows, as a hashed level; none
+    hot)."""
+    rng = np.random.default_rng(seed)
+    hot = np.stack([np.full(n, 7), np.sort(rng.integers(0, 3000, n))])
+    t = 2**15
+    mixed = np.stack([rng.integers(0, 16**3, n), rng.integers(0, 23**3, n),
+                      rng.integers(0, t, n)])
+    return [(name, idx.astype(np.int32), t_rows,
+             rng.uniform(-1, 1, (len(idx), n, f)).astype(np.float32))
+            for name, idx, t_rows in (("hot rows", hot, 2**12),
+                                      ("mixed levels", mixed, t))]
 
 
 @pytest.fixture
@@ -60,6 +86,39 @@ def test_k5_fwd_bwd_match_plain(cuda_device, f, log2t):
     ref = multilevel_lookup_bwd_plain(g, idx, levels * t)
     assert float((tab.grad - ref).abs().max()) <= BWD_RTOL * float(
         ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [2, 4])
+@pytest.mark.parametrize("out_of_range", [False, True])
+def test_k5_bwd_window_and_global_branches(cuda_device, f, out_of_range):
+    """The backward on hot levels (through its shared-memory window, and
+    past the window's end) and on levels that are not (300,001 pairs a
+    level, so blocks' ranges cross level edges), with and without
+    out-of-range rows sprinkled in: within
+    BWD_RTOL of the largest entry of the plain version fed a float64
+    cotangent (out-of-range pairs left out of it)."""
+    for name, idx, t_rows, g in bwd_index_sets(f, 300001, seed=f):
+        levels = idx.shape[0]
+        ok = np.ones(idx.shape, bool)
+        if out_of_range:
+            rng = np.random.default_rng(f)
+            bad = rng.uniform(size=idx.shape) < 0.01
+            idx = np.where(bad, rng.choice([-1, -7, t_rows, 2**30],
+                                           idx.shape), idx).astype(np.int32)
+            ok = ~bad
+        ti, tg = (torch.from_numpy(a).to(cuda_device) for a in (idx, g))
+        before = multilevel_lookup_bwd.launches
+        gk = multilevel_lookup_bwd(tg, ti, levels * t_rows)
+        torch.cuda.synchronize()
+        assert multilevel_lookup_bwd.launches == before + 1
+        tok = torch.from_numpy(ok).to(cuda_device)
+        exact = multilevel_lookup_bwd_plain(
+            torch.where(tok[..., None], tg.double(), 0.0),
+            torch.where(tok, ti, 0), levels * t_rows)
+        scale = float(exact.abs().max())
+        err = float((gk.double() - exact).abs().max())
+        assert err <= BWD_RTOL * scale, (name, err, scale)
 
 
 @pytest.mark.cuda
