@@ -1,10 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (seal3d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--workspace DIR] [--k1-baseline FILE.cu ...]
-                          [--hash-baseline FILE.cu ...]
-                          [--ladder-baseline FILE.cu ...]
-                          [--lookup-baseline FILE.cu ...]
+    python3 chip_smoke.py [--workspace DIR] [--baseline FILE.cu ...]
 
 Phases, each of which raises (exit code != 0) when it fails:
 1. print the card (nvidia-smi name and power limit) and build the CUDA
@@ -64,12 +61,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    box, at pool 32 and 64. t0, far, keep and cnt bit-identical to plain.
    Times: events around eager calls against the plain version (and its
    kernel launches, from the profiler); device time (CUDA-graph replays)
-   on each case and on the 20 demand probes of one view in one graph; the
-   host microseconds of one wrapper call (`k4_host_us`). With
-   --ladder-baseline FILE.cu, other versions of csrc/ladder.cu (`git show
-   <commit>:seal3d_tpu_torch/csrc/ladder.cu`, or a copy with another
-   constant) are built beside the tree's, must give bit-identical outputs
-   and are timed on the same cases in turns;
+   on each case and on the 20 demand probes of one view in one graph, and
+   the plain version's (`busy_ms`); the host microseconds of one wrapper
+   call (`k4_host_us`). With --baseline .../ladder.cu, other versions of
+   csrc/ladder.cu (`git show <commit>:seal3d_tpu_torch/csrc/ladder.cu`, or
+   a copy with another constant) are built beside the tree's, must give
+   bit-identical outputs and are timed on the same cases in turns;
 12. the 8 test views at 800x800 from phase 7's state through
    `Trainer.render_image` with `RenderOptions(tl_kernel=True)` and `False`:
    images within 1e-5, depths within 1e-4, equal sample counts; K4 launched
@@ -85,9 +82,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    `index_select` / `index_add_` calls, all timed. The backward also as
    device time on each case: through the wrapper, its gradient's zero fill
    alone, the kernel alone and level by level, beside its atomic-rate
-   floor. With --lookup-baseline FILE.cu, other versions of csrc/lookup.cu
-   are built beside the tree's, their backward must agree within
-   2 BWD_RTOL, and is timed on the same cases in turns;
+   floor; its plain version's and `index_add_`'s device times too. With
+   --baseline .../lookup.cu, other versions of csrc/lookup.cu are built
+   beside the tree's, their backward must agree within 2 BWD_RTOL, and is
+   timed on the same cases in turns;
 14. the bbox edit through the port's CLI at full -O width, 256x256 views
    (`python -m seal3d_tpu_torch.main_SealNeRF synthetic -O --bound 1.0
    --dt_gamma 0 --min_near 0.05 --max_steps 512 --H 256 --W 256
@@ -120,7 +118,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    plain version fed a float64 cotangent, within BWD_RTOL of the largest
    entry (the fp32 plain version itself strays further on the Seal batch,
    whose thousands of terms per coarse row cancel). Times are device times
-   (calls replayed from a CUDA graph). With --k1-baseline FILE.cu, other
+   (calls replayed from a CUDA graph; the plain version's from its kernels'
+   busy time, `busy_ms`). With --baseline .../halo_encode.cu, other
    versions of csrc/halo_encode.cu (an earlier commit's: `git show
    <commit>:seal3d_tpu_torch/csrc/halo_encode.cu`) are built beside the
    tree's, must give the bit-identical forward, and are timed on the same
@@ -135,14 +134,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    launches over one-level configs and table slices). Forward <= 1e-5 of
    plain, backward within BWD_RTOL of the largest entry of the plain version
    fed a float64 cotangent. Device times (CUDA-graph replays; the backward
-   with the zero fill of its gradient). Beside each case's byte bound, its
+   with the zero fill of its gradient; the plain versions' from their
+   kernels' busy time). Beside each case's byte bound, its
    sector floor: the 32-byte table sectors distinct within each warp of 32
    consecutive samples over the L2's sector rate, or those distinct in all
    over the device-memory rate, whichever is larger. Then, around the
    forward's switch from the direct kernel to the tiles, prefixes of both
    real chunks (F=4 with a random cotangent, and F=2) and the first query
    chunk of a full grid update, and ms per train step and seconds per
-   800x800 view of both states. With --hash-baseline FILE.cu, other
+   800x800 view of both states. With --baseline .../hash_encode.cu, other
    versions of csrc/hash_encode.cu (`git show
    <commit>:seal3d_tpu_torch/csrc/hash_encode.cu`) are built beside the
    tree's, must give the bit-identical forward on every case, and are timed
@@ -154,7 +154,9 @@ Phases, each of which raises (exit code != 0) when it fails:
 The line before the last is the kernel table as JSON (eight kernels, each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
-computes the same function, that call's time); the last line is
+computes the same function, that call's time; a row whose own time is
+device time has its plain and library times as device time too); the
+last line is
 {"ok": true, "device": {...}}. There is no CPU path: without a CUDA device
 the script exits non-zero before printing any result.
 """
@@ -192,6 +194,9 @@ PEAK_FP32_S = 67e12
 # 4.4-4.8e12 bytes/s of them (this card, PERF.md section 6)
 L2_SECTOR_BYTES_S = 4.6e12
 LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+# the csrc files another version of which --baseline takes, known by name
+BASELINE_SOURCES = ("halo_encode.cu", "hash_encode.cu", "ladder.cu",
+                    "lookup.cu")
 
 
 def check(cond: bool, msg: str):
@@ -224,6 +229,26 @@ def time_device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
     return time_ms(graph.replay, 5) / iters
+
+
+def busy_ms(fn, calls: int = 3) -> float:
+    """Mean device ms per call that fn's kernels and copies keep the card
+    busy, from torch.profiler (after one warm-up call): device time, as
+    `time_device_ms` gives, for a callable that a CUDA graph cannot hold (a
+    plain version that copies host scalars to the card). It leaves out the
+    gaps between kernels that a graph replay still counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
 
 
 def time_turns(kernel, plain):
@@ -308,25 +333,20 @@ def main(argv=None):
     ap.add_argument("--workspace", default=None,
                     help="keep checkpoint and renders here (default: a "
                          "temporary directory, removed at exit)")
-    ap.add_argument("--k1-baseline", action="append", default=[],
+    ap.add_argument("--baseline", action="append", default=[],
                     metavar="FILE.cu",
-                    help="another version of csrc/halo_encode.cu with the "
-                         "same C entries (an earlier commit's, say): built "
-                         "beside the tree's and timed on the same K1 cases "
-                         "in turns (phase 16); may be given more than once")
-    ap.add_argument("--hash-baseline", action="append", default=[],
-                    metavar="FILE.cu",
-                    help="the same for csrc/hash_encode.cu and the hash-encode "
-                         "cases (phase 17)")
-    ap.add_argument("--ladder-baseline", action="append", default=[],
-                    metavar="FILE.cu",
-                    help="the same for csrc/ladder.cu and K4's cases (phase "
-                         "11)")
-    ap.add_argument("--lookup-baseline", action="append", default=[],
-                    metavar="FILE.cu",
-                    help="the same for csrc/lookup.cu and K5's backward "
-                         "cases (phase 13)")
+                    help="another version of csrc/halo_encode.cu, "
+                         "hash_encode.cu, ladder.cu or lookup.cu (an earlier "
+                         "commit's, say), known by its file name: built "
+                         "beside the tree's and timed on the same cases in "
+                         "turns (phases 16, 17, 11 and 13); may be given "
+                         "more than once")
     args = ap.parse_args(argv)
+    baselines = {name: [] for name in BASELINE_SOURCES}
+    for src in args.baseline:
+        if os.path.basename(src) not in baselines:
+            ap.error(f"--baseline {src}: not one of {sorted(baselines)}")
+        baselines[os.path.basename(src)].append(src)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (this script has no CPU "
                          "path)")
@@ -349,17 +369,29 @@ def main(argv=None):
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
+    seconds = {}    # wall seconds by phase, to see what a run spends
+    clock = [time.perf_counter()]
+
+    def lap(phases):
+        now = time.perf_counter()
+        seconds[phases] = round(now - clock[0], 1)
+        clock[0] = now
+
     with tempfile.TemporaryDirectory() as tmp:
         ws = args.workspace or tmp
         k1_fwd, ds800, chunk = run_phases(dev, ws)
+        lap("1-5")
         k1_bwd = k1_bwd_phase(dev)
+        lap("6")
         tr7, fwd_launches, bwd_launches = train_phase(os.path.join(ws, "train"))
         k1_fwd["launches"] += fwd_launches
         k1_bwd["launches"] += bwd_launches
         with capture_k1() as seen:      # one more step of the trained state
             tr7.train_step()
         step_case = dict(seen[-1], name="real train step (packed, ray order)")
+        lap("7")
         hash_rows = hash_kernels_phase(dev)
+        lap("8")
         hash_trainers = {}
         for backend in ("bucket", "pallas"):
             tr, fwd, bwd = train_phase(os.path.join(ws, f"train_{backend}"),
@@ -368,13 +400,17 @@ def main(argv=None):
             hash_rows[0]["launches"] += fwd
             hash_rows[1]["launches"] += bwd
             hash_trainers[backend] = tr
+        lap("9-10")
         hash_measure_phase(dev, hash_rows, hash_trainers, ds800,
-                           args.hash_baseline)
+                           baselines["hash_encode.cu"])
+        lap("17")
         del hash_trainers, tr
         torch.cuda.empty_cache()
-        k4 = ladder_phase(dev, tr7, ds800, ws, args.ladder_baseline)
+        k4 = ladder_phase(dev, tr7, ds800, ws, baselines["ladder.cu"])
+        lap("11-12")
         del ds800
-        k5_rows = lookup_phase(dev, args.lookup_baseline)
+        k5_rows = lookup_phase(dev, baselines["lookup.cu"])
+        lap("13")
         teacher_ckpt = os.path.join(ws, "train", "checkpoints",
                                     f"ngp_step{TRAIN_STEPS:07d}.npz")
         fwd, bwd, k4_seal, seal_case = seal_phase(
@@ -382,11 +418,15 @@ def main(argv=None):
         k1_fwd["launches"] += fwd
         k1_bwd["launches"] += bwd
         k4["launches"] += k4_seal
+        lap("14")
         del tr7
         torch.cuda.empty_cache()
         k1_tp = k1_levels_phase(dev, chunk)
+        lap("15")
         k1_measure_phase(dev, k1_bwd, step_case, chunk, seal_case,
-                         args.k1_baseline)
+                         baselines["halo_encode.cu"])
+        lap("16")
+    print(f"[time] wall seconds by phase: {json.dumps(seconds)}")
     kernels = [k1_fwd, k1_bwd, k1_tp, *hash_rows, k4, *k5_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
@@ -960,6 +1000,7 @@ def ladder_phase(dev, tr7, ds, ws, baselines):
                       dict(kw, pool=pool)))
     names = baseline_names(baselines)
     dev_ms_chunk = None
+    err = 0.0
     for tag, r_o, r_d, tabs, kw_ in cases:
         with torch.no_grad():
             out = ladder_plan(r_o, r_d, *tabs, aabb, **kw_)
@@ -967,6 +1008,8 @@ def ladder_phase(dev, tr7, ds, ws, baselines):
             diff = [k for k, a_, b_ in zip(("t0", "far", "keep", "cnt"),
                                            out, ref) if not torch.equal(a_, b_)]
             check(not diff, f"K4 on {tag}: {diff} not bit-identical to plain")
+            err = max(err, *(float((a_.float() - b_.float()).abs().max())
+                             for a_, b_ in zip(out, ref)))
             for src, name in zip(baselines, names[1:]):
                 with other_library(k4, src):
                     other = ladder_plan(r_o, r_d, *tabs, aabb, **kw_)
@@ -984,6 +1027,8 @@ def ladder_phase(dev, tr7, ds, ws, baselines):
                   for name in names))
         if dev_ms_chunk is None:    # the first case: the busiest chunk
             dev_ms_chunk = sum(dev_ms["tree"]) / 2
+            plain_dev_ms = busy_ms(
+                lambda: ladder_plan_plain(ro, rd, *tables, aabb, **kw))
 
     # the 20 demand probes of one view, as render_image issues them (pad
     # slots get rays that miss the box), back to back in one graph
@@ -1003,14 +1048,16 @@ def ladder_phase(dev, tr7, ds, ws, baselines):
           f"device ms: " + "; ".join(
               f"{name} {sum(view_ms[name]) / 2:.4f} {view_ms[name]}"
               for name in names))
-    print(f"[k4 cases] host us per ladder_plan wrapper call: {host:.1f}")
+    print(f"[k4 cases] host us per ladder_plan wrapper call: {host:.1f}; "
+          f"the plain version's device ms on the busiest chunk: "
+          f"{plain_dev_ms:.4f}")
     # per hit ray ~30 operations per coarse step and ~25 per group, ~20 more
     # per kept group (the 128^3 test); rays that miss the box need none
     row = {"name": "ladder_plan", "route": "cuda",
            "source": "seal3d_tpu_torch/csrc/ladder.cu",
            "replaces": "seal3d_tpu/ops/pallas/ladder.py:230",
-           "launches": 0, "max_abs_err": 0.0, "ms": dev_ms_chunk,
-           "plain_ms": plain_ms, "library_ms": None,
+           "launches": 0, "max_abs_err": err, "ms": dev_ms_chunk,
+           "plain_ms": plain_dev_ms, "library_ms": None,
            **bound(chunk * (24 + 12 + cg) + 24
                    + sum(t.numel() for t in tables),
                    hit * (eo.coarse_steps * 30 + cg * 25)
@@ -1055,13 +1102,6 @@ def ladder_phase(dev, tr7, ds, ws, baselines):
           f"K4 launches {launches} != probes {probes} + chunks {rendered}")
     row["launches"] = launches
     return row
-
-
-# csrc/lookup.cu's backward sums a level in a block's shared-memory window
-# of kWindowBytes when its pairs come to kHotAdds or more per row: those
-# constants, to leave hot levels out of the atomic-rate floor
-LOOKUP_WINDOW_BYTES = 32 * 1024
-LOOKUP_HOT_ADDS = 1024
 
 
 def lookup_phase(dev, baselines):
@@ -1172,7 +1212,12 @@ def lookup_phase(dev, baselines):
                 fwd.update(ms=f_ms, plain_ms=f_plain, library_ms=f_lib,
                            **bound(pairs * (4 + 4 * f)
                                    + 4 * f * min(pairs, n_rows), pairs))
-                bwd.update(plain_ms=b_plain, library_ms=b_lib,
+                # device time, as the kernel's own (lookup_bwd_measure)
+                bwd.update(plain_ms=time_device_ms(
+                    lambda: multilevel_lookup_bwd_plain(g, idx, n_rows)),
+                           library_ms=time_device_ms(lambda: torch.zeros(
+                               (n_rows, f), device=dev).index_add_(0, rows,
+                                                                    g2)),
                            **bound(pairs * (4 + 4 * f) + 4 * f * n_rows,
                                    pairs * f))
             timed.append(dict(tag=f"{tag} F={f}", g=g, idx=idx,
@@ -1187,15 +1232,12 @@ def lookup_phase(dev, baselines):
     return [fwd, bwd]
 
 
-def atomic_sectors(idx, t_rows, f, levels_mask=None) -> int:
+def atomic_sectors(idx, t_rows, f) -> int:
     """The 32-byte gradient sectors that K5's backward sends to the L2: for
     each run of 32 consecutive (level, pair) items (a warp's vector atomic),
-    the distinct sectors its valid rows fall in, summed; with levels_mask
-    [L] bool, over those levels only."""
+    the distinct sectors its valid rows fall in, summed."""
     levels, n = idx.shape
     ok = (idx >= 0) & (idx < t_rows)
-    if levels_mask is not None:
-        ok &= levels_mask[:, None]
     base = torch.arange(levels, device=idx.device)[:, None] * t_rows
     sec = torch.where(ok, (idx.long() + base) * (4 * f) // 32, -1).flatten()
     sec = torch.nn.functional.pad(sec, (0, -sec.numel() % 32), value=-1)
@@ -1207,15 +1249,14 @@ def atomic_sectors(idx, t_rows, f, levels_mask=None) -> int:
 
 def lookup_bwd_measure(dev, timed, baselines) -> float:
     """Phase 13, end: K5's backward as device time (CUDA-graph replays) on
-    each case, every version (the tree's, then every --lookup-baseline) in
+    each case, every version (the tree's, then every lookup.cu --baseline) in
     turns: through the wrapper (with the zero fill of its gradient), the
     zero fill alone, the kernel alone on a gradient allocated once, and the
     kernel alone level by level (one-level launches on slices of idx, g and
     the gradient). Beside them the atomic-rate floor: the 32-byte sectors
-    the design's vector atomics send to the L2 (`atomic_sectors`; the
-    tree's send none for the pairs of a hot level, which its shared-memory
-    window sums) over the rate at which the tree's kernel sends them on the
-    same pairs at rows drawn uniformly from T (first case of each width F).
+    that one vector atomic a pair sends to the L2 (`atomic_sectors`) over
+    the rate at which the tree's kernel sends them on the same pairs at
+    rows drawn uniformly from T (first case of each width F).
     -> the tree's wrapper time on the first case."""
     from seal3d_tpu_torch.ops import lookup as k5
     from seal3d_tpu_torch.ops.lookup import multilevel_lookup_bwd
@@ -1255,7 +1296,7 @@ def lookup_bwd_measure(dev, timed, baselines) -> float:
                 lambda: torch.zeros((n_rows, f), device=dev))
             if f not in rates:
                 # the same pairs and cotangent at uniform rows of T: at case
-                # (a), 64 adds a row on every level, none hot
+                # (a), 64 adds a row on every level
                 uni = torch.randint(0, t_rows, idx.shape, dtype=torch.int32,
                                     device=dev,
                                     generator=torch.Generator(device=dev)
@@ -1265,20 +1306,13 @@ def lookup_bwd_measure(dev, timed, baselines) -> float:
                                     t_rows, f)) * 1e-3)
                 del uni
             rate = rates[f]
-            ok = (idx >= 0) & (idx < t_rows)
-            top = torch.where(ok, idx, -1).amax(1)
-            hot = ((top < LOOKUP_WINDOW_BYTES // (4 * f))
-                   & (n >= LOOKUP_HOT_ADDS * (top + 1)))
-            pairs = int(ok.sum())
+            pairs = int(((idx >= 0) & (idx < t_rows)).sum())
             every = atomic_sectors(idx, t_rows, f)
-            cold = atomic_sectors(idx, t_rows, f, ~hot)
         print(f"[k5 bwd] {case['tag']}: {levels} levels x {n} pairs "
               f"({pairs} valid), [{n_rows}, {f}] gradient; its zero fill "
               f"{zero_ms:.4f} ms; atomic sectors at {rate / 1e9:.1f} G/s "
               f"(these pairs at uniform rows) -> atomic-rate floor "
-              f"{every / rate * 1e3:.4f} ms at one vector atomic a pair "
-              f"({every} sectors), {cold / rate * 1e3:.4f} ms without the "
-              f"hot levels {hot.nonzero().flatten().tolist()} ({cold})")
+              f"{every / rate * 1e3:.4f} ms ({every} sectors)")
         for name in names:
             tm = times[name]
             per = [tm[f"L{l}"] * 1e3 for l in range(levels)]
@@ -1612,8 +1646,9 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
     and level by level, on the packed samples of a real train step, on
     random points of the same count, on the real render chunk, on one Seal
     pretraining batch and on 2^20 random points; each version of the kernels
-    (the tree's, then every --k1-baseline) timed in turns, as device time
-    (`time_device_ms`). The backward is held against the plain version fed
+    (the tree's, then every halo_encode.cu --baseline) timed in turns, as
+    device time (`time_device_ms`; the plain backward's is `busy_ms`). The
+    backward is held against the plain version fed
     a float64 cotangent, within BWD_RTOL of its largest entry.
     Updates the backward's kernel-table row to the real train step."""
     from seal3d_tpu_torch.ops import halo_encode as k1
@@ -1698,8 +1733,8 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
                     with other_library(k1, src):
                         times[name][op] += time_device_ms(fn) / 2
             if g is not None and case is cases[0]:
-                plain_ms = time_ms(lambda: halo_encode_bwd_plain(
-                    g, x, v, cfg, n), 3)
+                plain_ms = busy_ms(lambda: halo_encode_bwd_plain(
+                    g, x, v, cfg, n))
         print(f"[k1 cases] {case['name']}: M={m} ({n_valid} valid) L={levels}"
               f" F={f}; tree fwd max_abs_err {err_f:.3e}"
               + ("" if g is None else
@@ -1956,21 +1991,20 @@ def hash_measure_phase(dev, rows, trainers, ds800, baselines):
         # the kernel-table rows: the bucket path's real chunk and real step
         if case["backend"] == "bucket" and "chunk" in case["name"]:
             with torch.no_grad():
-                plain_ms = time_ms(lambda: hash_encode_plain(t, x, cfg), 3)
+                plain_ms = busy_ms(lambda: hash_encode_plain(t, x, cfg))
             rows[0].update(ms=times["tree"]["fwd"], plain_ms=plain_ms,
                            max_abs_err=max(rows[0]["max_abs_err"], err_f),
                            **bnd_f)
         if case["backend"] == "bucket" and "real train step" in case["name"]:
             with torch.no_grad():
-                plain_ms = time_ms(lambda: hash_encode_bwd_plain(g, x, cfg, n),
-                                   3)
+                plain_ms = busy_ms(lambda: hash_encode_bwd_plain(g, x, cfg, n))
                 # K2's own function as one PyTorch call on this step's keys
                 keys, w = corner_indices_weights(x, cfg)
                 contrib = (g.reshape(m, levels, 1, f)
                            * w[..., None]).reshape(-1, f)
                 keys = keys.reshape(-1)
-                lib_ms = time_ms(lambda: torch.zeros(
-                    (n, f), device=dev).index_add_(0, keys, contrib), 5)
+                lib_ms = time_device_ms(lambda: torch.zeros(
+                    (n, f), device=dev).index_add_(0, keys, contrib))
                 zero_ms = time_device_ms(
                     lambda: torch.zeros((n, f), device=dev))
                 del keys, w, contrib

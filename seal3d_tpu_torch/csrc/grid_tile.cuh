@@ -1,5 +1,6 @@
 // Tile helpers shared by the grid-encode kernels (halo_encode.cu,
-// hash_encode.cu). Both give a block a tile of consecutive samples, a warp
+// hash_encode.cu), and the resident-grid size that ladder.cu and lookup.cu
+// launch. The grid-encode kernels give a block a tile of consecutive samples, a warp
 // 32 consecutive samples and one level at a time, pass the tile's features
 // through shared memory, and sum, in the backward, the contributions of
 // consecutive lanes that lie in one cell before the atomics.
@@ -89,6 +90,35 @@ int allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Devices whose resident-grid size a kernel keeps (see resident_blocks).
+constexpr int kMaxDevices = 64;
+
+// The blocks of `kernel` (at `threads` threads, no dynamic shared memory)
+// that the current device holds at once: asked of the device once and kept
+// in `resident` (one entry per device, 0 until asked; a static array of the
+// caller, one per kernel). Returns a cudaError_t; sets *blocks on success.
+template <typename K>
+int resident_blocks(K kernel, int threads, int resident[kMaxDevices],
+                    int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, 0);
+    }
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
+  }
+  *blocks = resident[dev];
+  return 0;
 }
 
 }  // namespace grid

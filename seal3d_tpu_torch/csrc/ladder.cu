@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "grid_tile.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -212,23 +214,13 @@ extern "C" int ladder_plan(const float* rays_o, const float* rays_d,
   if (n == 0) return 0;
   // as many blocks as are resident at once (once per device), fewer when
   // there are fewer rays than their warps
-  static int resident[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, ladder_plan_kernel, kThreads, 0);
-    }
-    if (err != cudaSuccess) return (int)err;
-    resident[dev] = sms * per_sm;
-  }
+  static int resident[grid::kMaxDevices] = {};
+  int most = 0;
+  const int err = grid::resident_blocks(ladder_plan_kernel, kThreads,
+                                        resident, &most);
+  if (err != 0) return err;
   const long long want = (n + kWarps - 1) / kWarps;
-  const int blocks = (int)(want < resident[dev] ? want : resident[dev]);
+  const int blocks = (int)(want < most ? want : most);
   ladder_plan_kernel<<<blocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       rays_o, rays_d, aabb, coarse16, pooled, fine, t0, far, keep, cnt, n,

@@ -19,27 +19,24 @@
 // table that fits the 50 MB L2 at T = 2^15 (8 MiB at F=4) and mostly does not
 // at T = 2^19. The backward: the rate at which the L2 takes vector atomics
 // (one per pair, one request per 32-byte sector that a warp's pairs touch:
-// ~68 G/s at F=4 on uniformly random rows), more than its bytes; and
-// where a level's few hundred rows take thousands of adds each (the
-// coarsest level of a 2-D grid), the serialisation of atomics on one
-// address: 11x a level's time at 14,500 adds a row, 1.5x at 624, nothing
-// measurable at 512 (PERF.md, section 6).
+// ~68 G/s at F=4 on uniformly random rows), more than its bytes; and where a
+// level's few hundred rows take thousands of adds each, the serialisation of
+// atomics on one address (PERF.md, section 6).
 //
 // Design. Forward: one thread per (level, pair), pairs fastest, so a warp
 // reads 32 consecutive indices and writes 32 consecutive rows of the output.
 // Backward: a grid of as many blocks as are resident at once, each walking
 // one contiguous range of the [L, N] pairs with several pairs per thread in
-// flight, one vector atomic per pair; on a hot level (a few hundred rows
-// that thousands of pairs each add to) the block sums in a shared-memory
-// window first and adds each touched row once. Shared-memory float atomics
-// are slower than the L2's own on rows that a few hundred pairs share (a
-// window on every level made the 3-D case 1.9x slower), so nothing else can
-// take pairs off the L2's atomic rate. An index outside [0, T) reads as
-// zeros and adds nothing (no out-of-bounds access).
+// flight, one vector atomic per pair. Summing in shared memory first does
+// not pay on the paths' traffic: shared float atomics are slower than the
+// L2's own on rows that a few hundred pairs share (a window on every level
+// made the 3-D case 1.9x slower). An index outside [0, T) reads as zeros and
+// adds nothing (no out-of-bounds access).
 
 #include <cuda_runtime.h>
 #include <climits>
 
+#include "grid_tile.cuh"
 #include "grid_vec.cuh"
 
 namespace {
@@ -68,54 +65,20 @@ lookup_fwd_kernel(const float* __restrict__ table, const int* __restrict__ idx,
   reinterpret_cast<V*>(out)[i] = v;
 }
 
-// The backward's block: threads, pairs each thread holds in flight, the
-// bytes of its shared-memory window onto the low rows of a level, and the
-// adds per row from which a level counts as hot (see the kernel).
+// The backward's block: threads, and pairs each thread holds in flight.
 constexpr int kBwdThreads = 256;
 constexpr int kBwdUnroll = 4;
 constexpr int kChunk = kBwdThreads * kBwdUnroll;
-constexpr int kWindowBytes = 32 * 1024;
-constexpr long long kHotAdds = 1024;
-
-__device__ __forceinline__ void shared_add(float4* dst, const float4& v) {
-  float* d = reinterpret_cast<float*>(dst);
-  atomicAdd(d + 0, v.x);
-  atomicAdd(d + 1, v.y);
-  atomicAdd(d + 2, v.z);
-  atomicAdd(d + 3, v.w);
-}
-__device__ __forceinline__ void shared_add(float2* dst, const float2& v) {
-  float* d = reinterpret_cast<float*>(dst);
-  atomicAdd(d + 0, v.x);
-  atomicAdd(d + 1, v.y);
-}
-
-__device__ __forceinline__ bool nonzero(const float4& v) {
-  return v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
-}
-__device__ __forceinline__ bool nonzero(const float2& v) {
-  return v.x != 0.f || v.y != 0.f;
-}
 
 // Each block walks one contiguous range of the [L, N] pairs, kChunk at a
-// time. On the first chunk of each level it meets, the block takes the
-// largest valid row r; the level is hot when its N pairs come to kHotAdds
-// or more per row of [0, r] and those rows fit the window. A hot level's
-// rows below the window are summed in shared memory (shared atomics, which
-// cost more than an L2 atomic on a row that few pairs share) and go out as
-// one vector atomic per touched row when the range leaves the level; every
-// other pair is one vector atomic into the L2.
+// time, a level at a time (so the level's offset costs no division per
+// pair), with one vector atomic into the L2 per valid pair.
 template <int F>
 __global__ void __launch_bounds__(kBwdThreads)
 lookup_bwd_kernel(const float* __restrict__ g, const int* __restrict__ idx,
                   float* __restrict__ gtab, long long n_items, long long n,
                   long long t_rows, long long per_block) {
   using V = typename Vec<F>::T;
-  constexpr int kRows = kWindowBytes / (4 * F);
-  extern __shared__ __align__(16) unsigned char window_bytes[];
-  __shared__ int warp_max[kBwdThreads / 32];
-  V* window = reinterpret_cast<V*>(window_bytes);
-  for (int r = threadIdx.x; r < kRows; r += kBwdThreads) zero(window[r]);
   const long long begin = (long long)blockIdx.x * per_block;
   const long long end = min(n_items, begin + per_block);
   for (long long s = begin; s < end;) {
@@ -123,89 +86,40 @@ lookup_bwd_kernel(const float* __restrict__ g, const int* __restrict__ idx,
     const long long l = s / n;
     const long long e = min(end, (l + 1) * n);
     V* level = reinterpret_cast<V*>(gtab) + l * t_rows;
-    bool hot = false;
-    for (long long c = s; c < e; c += kChunk) {
+    for (long long c = s + threadIdx.x; c < e; c += kChunk) {
       int k[kBwdUnroll];
       V v[kBwdUnroll];
 #pragma unroll
       for (int u = 0; u < kBwdUnroll; ++u) {
-        const long long i = c + threadIdx.x + (long long)u * kBwdThreads;
+        const long long i = c + (long long)u * kBwdThreads;
         k[u] = -1;
-        zero(v[u]);
         if (i < e) {
           k[u] = __ldg(idx + i);
           v[u] = __ldg(reinterpret_cast<const V*>(g) + i);
-          if (k[u] >= t_rows) k[u] = -1;
         }
-      }
-      if (c == s) {
-        int m = -1;
-#pragma unroll
-        for (int u = 0; u < kBwdUnroll; ++u) m = max(m, k[u]);
-        m = __reduce_max_sync(0xffffffffu, m);
-        if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-        __syncthreads();
-#pragma unroll
-        for (int w = 0; w < kBwdThreads / 32; ++w) m = max(m, warp_max[w]);
-        __syncthreads();
-        hot = m >= 0 && m < kRows && n >= kHotAdds * (m + 1);
       }
 #pragma unroll
       for (int u = 0; u < kBwdUnroll; ++u) {
-        if (k[u] < 0) continue;
-        if (hot && k[u] < kRows) {
-          shared_add(window + k[u], v[u]);
-        } else {
-          atomic_add(level + k[u], v[u]);
-        }
+        if (k[u] >= 0 && k[u] < t_rows) atomic_add(level + k[u], v[u]);
       }
-    }
-    if (hot) {
-      // one vector atomic per window row the range touched
-      __syncthreads();
-      for (int r = threadIdx.x; r < kRows; r += kBwdThreads) {
-        const V w = window[r];
-        if (nonzero(w)) {
-          atomic_add(level + r, w);
-          zero(window[r]);
-        }
-      }
-      __syncthreads();
     }
     s = e;
   }
 }
 
-// Launch the backward over a grid of resident blocks (counted once per
-// device and width F).
+// Launch the backward over a grid of resident blocks.
 template <int F>
 int launch_bwd(const float* g, const int* idx, float* gtab, long long n_items,
                long long n, long long t_rows, cudaStream_t st) {
-  static int resident[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaFuncSetAttribute(lookup_bwd_kernel<F>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kWindowBytes);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, lookup_bwd_kernel<F>, kBwdThreads, kWindowBytes);
-    }
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    resident[dev] = sms * per_sm;
-  }
-  long long blocks = (n_items + kChunk - 1) / kChunk;
-  if (blocks > resident[dev]) blocks = resident[dev];
+  static int resident[grid::kMaxDevices] = {};
+  int most = 0;
+  const int err = grid::resident_blocks(lookup_bwd_kernel<F>, kBwdThreads,
+                                        resident, &most);
+  if (err != 0) return err;
+  const long long want = (n_items + kChunk - 1) / kChunk;
+  const long long blocks = want < most ? want : most;
   const long long per_block = (n_items + blocks - 1) / blocks;
-  lookup_bwd_kernel<F><<<(unsigned)blocks, kBwdThreads, kWindowBytes, st>>>(
+  lookup_bwd_kernel<F><<<(unsigned)blocks, kBwdThreads, 0, st>>>(
       g, idx, gtab, n_items, n, t_rows, per_block);
   return (int)cudaGetLastError();
 }

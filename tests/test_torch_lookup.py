@@ -19,7 +19,7 @@ from seal3d_tpu.ops import hashgrid as jhg
 from seal3d_tpu.ops.pallas.lookup import multilevel_lookup as jlookup
 from seal3d_tpu_torch.ops import hashgrid as thg
 from seal3d_tpu_torch.ops import lookup as tlk
-from test_torch_lookup_cuda import bwd_index_sets
+from test_torch_lookup_cuda import BWD_SET_PAIRS, bwd_index_sets
 
 L, T, F, N = 2, 2**12, 2, 700
 
@@ -74,10 +74,10 @@ def test_plain_bwd_on_hot_rows_and_mixed_levels(f):
     """multilevel_lookup_bwd_plain on the index sets the card's backward is
     tested on (tests/test_torch_lookup_cuda.py: a hot row, a level in
     ascending row order, dense coarse levels and a hashed one) against a
-    float64 np.add.at
-    and against JAX's fp32 `.at[rows].add`: within 1e-5 of the largest
-    entry (fp32 sums of up to 3000 terms a row, in another order)."""
-    for name, idx, t_rows, g in bwd_index_sets(f, 3000, seed=f):
+    float64 np.add.at and against JAX's fp32 `.at[rows].add`: within 1e-5
+    of the largest entry (fp32 sums of up to 3,001 terms a row, in another
+    order)."""
+    for name, idx, t_rows, g in bwd_index_sets(f, BWD_SET_PAIRS, seed=f):
         levels = idx.shape[0]
         rows = (idx.astype(np.int64)
                 + np.arange(levels)[:, None] * t_rows).reshape(-1)

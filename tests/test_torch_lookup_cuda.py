@@ -13,11 +13,12 @@ in an order that changes from run to run (the plain index_add_ on the card
 is an atomic scatter too): 1e-5 of the largest gradient entry.
 
 `bwd_index_sets` makes, with numpy from a seed, the index sets that load
-each branch of the backward (a hot level summed in a shared-memory window,
-rows past the window's end, one global atomic a pair elsewhere): every pair
-of a level on one row, a level in ascending row order, and in one call
-dense coarse levels and a hashed one. tests/test_torch_lookup.py feeds the
-same sets to the plain version and to the JAX package.
+the backward's atomics in the ways its paths can: every pair of a level on
+one row, a level in ascending row order (a block's range of consecutive
+pairs on few rows), and in one call dense coarse levels that would fit a
+block's shared memory and a hashed one that would not.
+tests/test_torch_lookup.py feeds the same sets to the plain version and to
+the JAX package.
 """
 
 import numpy as np
@@ -32,16 +33,22 @@ from seal3d_tpu_torch.ops.lookup import (multilevel_lookup,
                                          multilevel_lookup_plain)
 
 BWD_RTOL = 1e-5
+# pairs a level of `bwd_index_sets`, here and in tests/test_torch_lookup.py:
+# a level wholly on one row is then a sum of 3,001 fp32 terms, which any
+# order keeps within BWD_RTOL (at 300,001 terms one fp32 atomic a pair
+# strayed past it on the card, as any sequential fp32 sum may); and the
+# backward's 9 blocks take 1,001 pairs each, so their ranges cross level
+# edges
+BWD_SET_PAIRS = 3001
 
 
 def bwd_index_sets(f, n, seed=0):
     """[(name, idx [L, n] int32, t_rows, g [L, n, f] float32)]: 'hot rows'
-    (T=2^12; level 0 all on row 7, a hot level that the backward sums in
-    its shared-memory window; level 1 on rows 0-2999 in ascending order, so
-    that a block's first pairs make the level look hot and later ones pass
-    the window's last row at F=4), 'mixed levels' (T=2^15: level 0 on 16^3
-    rows, level 1 on 23^3, level 2 on all T rows, as a hashed level; none
-    hot)."""
+    (T=2^12; level 0 all on row 7; level 1 on rows 0-2999 in ascending
+    order, so that each block's range of pairs lands on a few consecutive
+    rows), 'mixed levels' (T=2^15: level 0 on 16^3 rows and level 1 on 23^3,
+    dense levels of 64 KiB and more at F=4, level 2 on all T rows, as a
+    hashed level)."""
     rng = np.random.default_rng(seed)
     hot = np.stack([np.full(n, 7), np.sort(rng.integers(0, 3000, n))])
     t = 2**15
@@ -91,14 +98,13 @@ def test_k5_fwd_bwd_match_plain(cuda_device, f, log2t):
 @pytest.mark.cuda
 @pytest.mark.parametrize("f", [2, 4])
 @pytest.mark.parametrize("out_of_range", [False, True])
-def test_k5_bwd_window_and_global_branches(cuda_device, f, out_of_range):
-    """The backward on hot levels (through its shared-memory window, and
-    past the window's end) and on levels that are not (300,001 pairs a
-    level, so blocks' ranges cross level edges), with and without
-    out-of-range rows sprinkled in: within
+def test_k5_bwd_hot_rows_and_mixed_levels(cuda_device, f, out_of_range):
+    """The backward on one row a level takes wholly, on rows in ascending
+    order and on dense and hashed levels in one call (blocks' ranges cross
+    level edges), with and without out-of-range rows sprinkled in: within
     BWD_RTOL of the largest entry of the plain version fed a float64
     cotangent (out-of-range pairs left out of it)."""
-    for name, idx, t_rows, g in bwd_index_sets(f, 300001, seed=f):
+    for name, idx, t_rows, g in bwd_index_sets(f, BWD_SET_PAIRS, seed=f):
         levels = idx.shape[0]
         ok = np.ones(idx.shape, bool)
         if out_of_range:
