@@ -151,6 +151,36 @@ Phases, each of which raises (exit code != 0) when it fails:
    hash_encode_fwd and hash_encode_bwd take their times and bounds from the
    bucket chunk (the table sectors it touches counted once) and the bucket
    step (the whole gradient written once).
+18. training and rendering at bound 2 (two cascades), the CLI's default
+   (it runs last): (a) the Trainer on WideSyntheticScene at bench.py's
+   wide_bound2 recipe (12 views at 192x192, `halo` at T=2^15 `wrap`,
+   dt_gamma 1/128, max_steps 512, budget 48, 256 candidates, coarse 64, lr
+   3e-3, 4096 rays, eval chunk 2^15 at budget 64 and flat_frac 0.5,
+   adaptive budget) for 48 warm-up and B2_STEPS timed steps: train rays/s
+   and ms per step (CUDA events); the PSNR of bench.py's view (its first
+   training view) and of a held-out view, there and again at
+   B2_GATE_STEPS, where bench.py's view must read >= 25 dB (both finite);
+   occupied cells on both cascades, K1's launches equal to the field calls,
+   and K1 against its plain version on one more step's packed samples
+   (some on cascade 1), then a torch.profiler breakdown of three more steps; (b) one 800x800 single-level view of that
+   state: seconds, kernel launches, K1 launches, samples, buckets; (c) the
+   dense oracle (128 + 128 samples a ray) on the held-out view against the
+   fast path, on that state (printed: the fast path never trained the cells
+   its grid skips, and the oracle integrates their fog), then after
+   B2_DENSE_STEPS dense train steps from it (2 K1 forwards and 1 backward
+   each; K1 against plain on one more) and a full grid update (>= 25 dB);
+   (d) `python -m
+   seal3d_tpu_torch.main_nerf synthetic -O --lr 3e-3 --iters 256 --H 128
+   --W 128` with the default bound and dt_gamma: finite val PSNR, K1
+   launches equal to the field calls;
+19. single-level eval and the dense path at bound 1, on phase 7's state
+   (it runs after phase 12): test view 0 at 800x800 through the default
+   two-level adaptive render and through the single-level fixed-budget one
+   (eval_two_level=False, eval_adaptive=False, eval_flat_frac=0.375):
+   seconds, K1 launches and samples of each, their PSNR against each other
+   >= 25 dB (bench.py:281-299's self-check, a gate here); then the
+   `--dense_render` CLI at a tiny size (60 steps at 32x32, `xla`): its
+   step checkpoint is written.
 The line before the last is the kernel table as JSON (eight kernels, each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
@@ -408,6 +438,8 @@ def main(argv=None):
         torch.cuda.empty_cache()
         k4 = ladder_phase(dev, tr7, ds800, ws, baselines["ladder.cu"])
         lap("11-12")
+        k1_fwd["launches"] += parity_phase(dev, tr7, ds800, ws)
+        lap("19")
         del ds800
         k5_rows = lookup_phase(dev, baselines["lookup.cu"])
         lap("13")
@@ -426,6 +458,11 @@ def main(argv=None):
         k1_measure_phase(dev, k1_bwd, step_case, chunk, seal_case,
                          baselines["halo_encode.cu"])
         lap("16")
+        fwd, bwd, err = bound2_phase(dev, ws)
+        k1_fwd["launches"] += fwd
+        k1_bwd["launches"] += bwd
+        k1_fwd["max_abs_err"] = max(k1_fwd["max_abs_err"], err)
+        lap("18")
     print(f"[time] wall seconds by phase: {json.dumps(seconds)}")
     kernels = [k1_fwd, k1_bwd, k1_tp, *hash_rows, k4, *k5_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -715,7 +752,7 @@ def train_phase(ws, backend="halo"):
           f"{counts}")
     n_full, n_part = len(full), len(part)
     chunks = sum(s["chunks_rendered"] for s in tr.render_stats)
-    field_calls = TRAIN_STEPS + 16 * n_full + 3 * n_part + chunks
+    field_calls = TRAIN_STEPS + grid_field_calls(grid, 1) + chunks
     print(f"{tag} {own} launches: backward {bwd} (train steps "
           f"{TRAIN_STEPS}), forward {fwd} (field calls {field_calls}: "
           f"{TRAIN_STEPS} steps, {n_full}x16 + {n_part}x3 grid-update chunks, "
@@ -2085,6 +2122,340 @@ def hash_measure_phase(dev, rows, trainers, ds800, baselines):
                   f"{[round(v, 3) for v in st[name]]}, "
                   f"{np.mean(vw[name]):.4f} s per 800x800 view "
                   f"{[round(v, 4) for v in vw[name]]}")
+
+
+B2_STEPS = 400      # phase 18's timed steps, after TIMING_WARMUP (48)
+# phase 18 trains on to this many steps before its PSNR gate: at bound 2
+# and lr 3e-3 the field leaves a slow first phase between steps ~450 and
+# ~1200 (scripts/probe_bound2_steps.py; PERF.md section 6)
+B2_GATE_STEPS = 1200
+B2_DENSE_STEPS = 64  # phase 18c's dense steps before the oracle comparison
+MIN_PARITY_DB = 25.0  # bench.py's own structural-collapse line, a gate here
+
+
+def k1_counted(fn):
+    """(fn(), K1 forward launches, backward launches): the counts set to 0
+    just before fn runs and read just after."""
+    from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_bwd
+
+    halo_encode.launches = halo_encode_bwd.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, halo_encode.launches, halo_encode_bwd.launches
+
+
+def k1_case_vs_plain(case, tag):
+    """K1 forward and backward on one captured case (cfg, table, x, valid,
+    g) against their plain versions: forward <= TOL, backward within
+    BWD_RTOL of the largest entry of the plain version fed a float64
+    cotangent -> forward max abs error. These launches count for no path."""
+    from seal3d_tpu_torch.ops.halo_encode import (halo_encode, halo_encode_bwd,
+                                                  halo_encode_bwd_plain,
+                                                  halo_encode_plain)
+
+    cfg, t, x, v, g = (case[k] for k in ("cfg", "table", "x", "valid", "g"))
+    n = t.shape[0]
+    with torch.no_grad():
+        err_f = float((halo_encode(t, x, v, cfg)
+                       - halo_encode_plain(t, x, v, cfg)).abs().max())
+        exact = halo_encode_bwd_plain(g.double(), x, v, cfg, n)
+        scale = float(exact.abs().max())
+        err_b = float((halo_encode_bwd(g, x, v, cfg, n) - exact).abs().max())
+        err_p = float((halo_encode_bwd_plain(g, x, v, cfg, n)
+                       - exact).abs().max())
+    n_valid = x.shape[0] if v is None else int(v.sum())
+    print(f"{tag} K1 on {case['name']}: M={x.shape[0]} ({n_valid} valid) "
+          f"F={t.shape[1]}: fwd max_abs_err {err_f:.3e}; bwd max_abs_err "
+          f"{err_b:.3e} of max |grad| {scale:.3e} against the float64 plain "
+          f"sum (rel {err_b / scale:.3e}; the fp32 plain version's rel "
+          f"{err_p / scale:.3e})")
+    check(err_f <= TOL, f"K1 fwd on {case['name']}: {err_f}")
+    check(err_b <= BWD_RTOL * scale,
+          f"K1 bwd on {case['name']}: {err_b} of {scale}")
+    return err_f
+
+
+def grid_field_calls(grid_updates, cascades):
+    """K1 forward launches of a train loop's grid updates: a full update
+    queries 2^21 cells a cascade in 2^17-cell chunks, a partial one 2^18 +
+    2^16 cells a cascade (3 chunks)."""
+    n_full = sum(1 for full, _ in grid_updates if full)
+    return cascades * (16 * n_full + 3 * (len(grid_updates) - n_full))
+
+
+def bound2_phase(dev, ws):
+    """Phase 18: training and rendering at bound 2 (two cascades), the CLI's
+    default. (a) bench.py's wide_bound2 recipe through the Trainer API on
+    WideSyntheticScene: train rays/s, val PSNR of one view, both cascades
+    occupied, K1 launches equal to the field calls, K1 against its plain
+    version on one more step's packed samples; (b) one 800x800
+    single-level view of that state; (c) the dense oracle on the 192x192
+    held-out view against the fast path, before and after B2_DENSE_STEPS
+    dense train steps (K1 against plain on one more) and a full grid
+    update; (d) the CLI at its default bound and dt_gamma.
+    The PSNR gate is taken at B2_GATE_STEPS, after the recipe's timed
+    steps.
+    -> (K1 forward launches, backward launches, max forward error)."""
+    from seal3d_tpu_torch import main_nerf
+    from seal3d_tpu_torch.data.synthetic import WideSyntheticScene
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.models.ngp import NGPConfig
+    from seal3d_tpu_torch.render.renderer import RenderOptions
+    from seal3d_tpu_torch.train.trainer import (TIMING_WARMUP, TrainConfig,
+                                                Trainer)
+
+    # --- (a) bench.py:148-176's recipe
+    scene = WideSyntheticScene()
+    t0 = time.perf_counter()
+    ds = scene.make_dataset(n_views=12, h=192, w=192, seed=0, device=dev)
+    val = scene.make_dataset(n_views=1, h=192, w=192, seed=1, device=dev)
+    torch.cuda.synchronize()
+    print(f"[bound2] WideSyntheticScene: 12 train + 1 val views at 192x192: "
+          f"{time.perf_counter() - t0:.2f} s")
+    fcfg = NGPConfig(bound=2.0, log2_hashmap_size=15, grid_backend="halo",
+                     gridtype="wrap")
+    opts = RenderOptions(bound=2.0, dt_gamma=1.0 / 128, max_steps=512,
+                         budget_per_ray=48, num_candidates=256,
+                         min_near=0.05, coarse_steps=64)
+    tcfg = TrainConfig(lr=3e-3, max_steps=30000, num_rays=4096,
+                       eval_chunk=2**15, eval_budget_per_ray=64,
+                       eval_flat_frac=0.5, random_bg=False,
+                       adaptive_budget=True)
+    steps = TIMING_WARMUP + B2_STEPS
+    tr = Trainer(ngp, fcfg, opts, tcfg, dataset=ds, seed=2, device=dev)
+    check(opts.cascades == 2, f"bound 2 has {opts.cascades} cascades")
+
+    def psnrs():
+        """(bench.py's measure: `evaluate(max_views=1)`, the first training
+        view; the held-out val view)."""
+        return tr.evaluate(max_views=1), tr.evaluate(val)
+
+    def train_and_eval():
+        tr.init_state()
+        tr.train(steps=steps, log_every=10**9)
+        timed, early = dict(tr.train_stats), psnrs()
+        tr.train(steps=B2_GATE_STEPS - steps, log_every=10**9)
+        grid = timed["grid_updates"] + tr.train_stats["grid_updates"]
+        return timed, grid, early, psnrs()
+
+    (st, grid, early, late), fwd, bwd = k1_counted(train_and_eval)
+    step_ms = st["window_s"] / st["window_steps"] * 1e3
+    rays_s = tcfg.num_rays * st["window_steps"] / st["window_s"]
+    n_full = sum(1 for f, _ in grid if f)
+    occupied = np.unpackbits(tr.state.occ.bitfield.cpu().numpy()).reshape(
+        2, -1).sum(1)
+    chunks = sum(s_["chunks_rendered"] for s_ in tr.render_stats)
+    field_calls = B2_GATE_STEPS + grid_field_calls(grid, 2) + chunks
+    print(f"[bound2] train: {steps} steps ({TIMING_WARMUP} warm-up), steps "
+          f"{TIMING_WARMUP + 1}-{steps}: {step_ms:.3f} ms per step, "
+          f"{rays_s:.0f} train rays/s (CUDA events, grid updates included); "
+          f"then on to step {B2_GATE_STEPS}: grid updates {n_full} full, "
+          f"{len(grid) - n_full} partial; final flat_frac "
+          f"{tr.opts.flat_frac}; loss {tr.history[-1]['loss']:.5f}")
+    for at, (p_train, p_val) in ((steps, early), (B2_GATE_STEPS, late)):
+        print(f"[bound2] PSNR at step {at}: {p_train:.2f} dB on bench.py's "
+              f"view (evaluate(max_views=1): the first training view; the "
+              f"JAX reference's TPU run read 35.51 dB at step 448, "
+              f"BENCH_r05.json, not like for like), {p_val:.2f} dB on the "
+              f"held-out val view (192x192)")
+    print(f"[bound2] occupied cells by cascade {occupied.tolist()}; K1 "
+          f"launches: forward {fwd} (field calls {field_calls}: "
+          f"{B2_GATE_STEPS} steps, {n_full}x32 + {len(grid) - n_full}x6 "
+          f"grid-update chunks, {chunks} eval chunks), backward {bwd}")
+    check(all(np.isfinite(early + late)), f"non-finite PSNR: {early, late}")
+    check(late[0] >= MIN_VAL_PSNR, f"bound-2 PSNR {late[0]:.2f} < "
+                                   f"{MIN_VAL_PSNR} at step {B2_GATE_STEPS}")
+    check((occupied > 0).all(), f"a cascade holds no occupied cell: "
+                                f"{occupied.tolist()}")
+    check(fwd > 0 and fwd == field_calls,
+          f"bound 2: K1 fwd launches {fwd} != field calls {field_calls}")
+    check(bwd == B2_GATE_STEPS,
+          f"bound 2: K1 bwd launches {bwd} != steps {B2_GATE_STEPS}")
+    with capture_k1() as seen:
+        tr.train_step()
+    err = k1_case_vs_plain(dict(seen[-1], name="one bound-2 train step's "
+                                "packed samples"), "[bound2]")
+    n_outer = int(((seen[-1]["x"] * 4.0 - 2.0).abs().amax(-1) > 1.0)
+                  [seen[-1]["valid"]].sum())
+    print(f"[bound2] of which on cascade 1 (|x| > 1): {n_outer}")
+    check(n_outer > 0, "no packed sample of the step lies on cascade 1")
+    profile_steps(tr)
+    total_f, total_b = fwd, bwd
+
+    # --- (b) one 800x800 single-level view of that state
+    ds800 = scene.make_dataset(n_views=1, h=800, w=800, seed=1, device=dev)
+    tr.attach_dataset(ds800)
+    check(not tr.eval_opts.two_level_ok(tcfg.eval_budget_per_ray),
+          "bound 2 should render single-level")
+    tr.render_image(ds800.poses[0], 800, 800)      # warm-up
+    t0 = time.perf_counter()
+    (img, _), fwd, _ = k1_counted(
+        lambda: tr.render_image(ds800.poses[0], 800, 800))
+    sec = time.perf_counter() - t0
+    s8 = tr.render_stats[-1]
+    launches = count_launches(lambda: tr.render_image(ds800.poses[0], 800,
+                                                      800))
+    gt = torch.as_tensor(ds800.images[0], device=dev).float() / 255.0
+    print(f"[bound2 1l] 800x800 view: {sec:.4f} s (host clock, synced), "
+          f"{launches} kernel launches, K1 launches {fwd}, chunks rendered "
+          f"{s8['chunks_rendered']} skipped {s8['chunks_skipped']}, buckets "
+          f"{s8['buckets']}, samples {s8['samples']}; PSNR against the "
+          f"analytic view {psnr(img.clamp(0, 1), gt):.2f} dB")
+    check(s8["nonfinite"] == 0, "non-finite pixels in the 800x800 view")
+    check(fwd == s8["chunks_rendered"] > 0,
+          f"800x800: K1 launches {fwd} != chunks {s8['chunks_rendered']}")
+    total_f += fwd
+    tr.attach_dataset(ds)
+
+    # --- (c) the dense oracle against the fast path on the held-out view.
+    # A field the fast path trained was never queried in the cells its
+    # occupancy grid skips, and holds a fog there (sigma ~0.3) that the
+    # dense oracle integrates: B2_DENSE_STEPS dense steps train it out
+    # first, then a full grid update gives the fast path the new field's
+    # occupancy.
+    dense = Trainer(ngp, fcfg, dataclasses.replace(opts, num_steps=128,
+                                                   upsample_steps=128),
+                    tcfg, dataset=ds, device=dev, use_dense=True)
+    dense.state = tr.state
+    gt = torch.as_tensor(val.images[0], device=dev).float() / 255.0
+
+    def both():
+        """(fast path, dense oracle) renders of the held-out view."""
+        return (tr.render_image(val.poses[0], 192, 192)[0].clamp(0, 1),
+                dense.render_image(val.poses[0], 192, 192)[0].clamp(0, 1))
+
+    def field_calls():    # of the last two renders
+        return (tr.render_stats[-1]["chunks_rendered"]
+                + 2 * dense.render_stats[-1]["chunks_rendered"])
+
+    (fast, oracle), fwd, _ = k1_counted(both)
+    check(fwd == field_calls(), f"dense: K1 launches {fwd}")
+    total_f += fwd
+    print(f"[bound2 dense] the fast path's state, 192x192 held-out view: "
+          f"dense (128 + 128 samples a ray) vs fast path "
+          f"{psnr(oracle, fast):.2f} dB; against the analytic view: dense "
+          f"{psnr(oracle, gt):.2f} dB, fast {psnr(fast, gt):.2f} dB")
+    t0 = time.perf_counter()
+    _, fwd, bwd = k1_counted(
+        lambda: [dense.train_step() for _ in range(B2_DENSE_STEPS)])
+    sec = time.perf_counter() - t0
+    print(f"[bound2 dense] {B2_DENSE_STEPS} dense train steps (4096 rays x "
+          f"256 samples): {sec / B2_DENSE_STEPS * 1e3:.2f} ms per step "
+          f"(host clock, synced); K1 launches forward {fwd}, backward {bwd}")
+    check(fwd == 2 * B2_DENSE_STEPS and bwd == B2_DENSE_STEPS,
+          f"dense steps: K1 launches {fwd} / {bwd}")
+    total_f, total_b = total_f + fwd, total_b + bwd
+    with capture_k1() as seen:
+        dense.train_step()
+    err = max(err, k1_case_vs_plain(dict(seen[-1], name="a dense train "
+                                         "step's samples"), "[bound2 dense]"))
+    tr.state = dense.state
+    t0 = time.perf_counter()
+    _, fwd, _ = k1_counted(lambda: tr.update_grid(full=True))
+    dense.state = tr.state
+    check(fwd == 32, f"a full grid update at C=2 made {fwd} K1 calls")
+    total_f += fwd
+    t1 = time.perf_counter()
+    (fast, oracle), fwd, _ = k1_counted(both)
+    sec = time.perf_counter() - t1
+    check(fwd == field_calls(), f"dense: K1 launches {fwd}")
+    total_f += fwd
+    sd = dense.render_stats[-1]
+    db = psnr(oracle, fast)
+    print(f"[bound2 dense] after the dense steps and a full grid update "
+          f"({t1 - t0:.3f} s): dense vs fast path {db:.2f} dB; against the "
+          f"analytic view: dense {psnr(oracle, gt):.2f} dB, fast "
+          f"{psnr(fast, gt):.2f} dB; the dense view {sd['samples']} samples, "
+          f"both views {sec:.4f} s")
+    check(sd["nonfinite"] == 0, "non-finite pixels in the dense render")
+    check(db >= MIN_PARITY_DB, f"dense vs fast path {db:.2f} dB < "
+                               f"{MIN_PARITY_DB}")
+    del dense, tr
+    torch.cuda.empty_cache()
+
+    # --- (d) the CLI at its default bound (2.0) and dt_gamma (1/128)
+    argv = ["synthetic", "-O", "--lr", "3e-3", "--iters", "256", "--H", "128",
+            "--W", "128", "--device", "cuda", "--workspace",
+            os.path.join(ws, "bound2_cli")]
+    t0 = time.perf_counter()
+    cli, fwd, bwd = k1_counted(lambda: main_nerf.main(argv))
+    sec = time.perf_counter() - t0
+    psnr_c = cli.eval_history[-1]["psnr"]
+    chunks = sum(s_["chunks_rendered"] for s_ in cli.render_stats)
+    field_calls = 256 + grid_field_calls(cli.train_stats["grid_updates"],
+                                         2) + chunks
+    print(f"[bound2 cli] main_nerf synthetic -O --lr 3e-3 --iters 256 at "
+          f"128x128 (bound {cli.opts.bound}, dt_gamma {cli.opts.dt_gamma}, "
+          f"{cli.opts.num_candidates} candidates): {sec:.2f} s in all; val "
+          f"PSNR {psnr_c:.2f} dB; K1 launches forward {fwd} (field calls "
+          f"{field_calls}), backward {bwd}")
+    check(cli.opts.bound == 2.0 and cli.opts.dt_gamma == 1 / 128
+          and cli.opts.cascades == 2, "the CLI's defaults moved")
+    check(np.isfinite(psnr_c), f"the bound-2 CLI's val PSNR: {psnr_c}")
+    check(fwd == field_calls and bwd == 256,
+          f"bound-2 CLI: K1 launches {fwd} / {bwd}, field calls "
+          f"{field_calls}, steps 256")
+    return total_f + fwd, total_b + bwd, err
+
+
+def parity_phase(dev, tr7, ds, ws):
+    """Phase 19: single-level eval and the dense path at bound 1. Test view 0
+    (800x800) of phase 7's trained state through the default two-level
+    adaptive render and through the single-level fixed-budget render of
+    bench.py's parity check; their PSNR against each other >= 25 dB. Then
+    the --dense_render CLI at a tiny size. -> K1 forward launches."""
+    from seal3d_tpu_torch import main_nerf
+    from seal3d_tpu_torch.config import (build_options, build_train_config,
+                                         common_parser)
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    cli = common_parser("chip_smoke").parse_args(
+        O_ARGV + ["--workspace", os.path.join(ws, "parity")])
+    cfg2 = build_train_config(cli)
+    cfg1 = dataclasses.replace(cfg2, eval_two_level=False,
+                               eval_adaptive=False, eval_flat_frac=0.375)
+    out, total = {}, 0
+    for tag, cfg in (("2l", cfg2), ("1l", cfg1)):
+        t = Trainer(ngp, tr7.fcfg, build_options(cli), cfg, dataset=ds,
+                    device=dev)
+        t.state = tr7.state
+        t.render_image(ds.poses[0], ds.h, ds.w)       # warm-up
+        t0 = time.perf_counter()
+        (img, _), fwd, _ = k1_counted(
+            lambda: t.render_image(ds.poses[0], ds.h, ds.w))
+        sec = time.perf_counter() - t0
+        s_ = t.render_stats[-1]
+        check(fwd == s_["chunks_rendered"] and s_["nonfinite"] == 0,
+              f"{tag}: K1 launches {fwd}, chunks {s_['chunks_rendered']}")
+        print(f"[parity] {tag} {ds.h}x{ds.w} test view 0: {sec:.4f} s, K1 "
+              f"launches "
+              f"{fwd}, chunks rendered {s_['chunks_rendered']} skipped "
+              f"{s_['chunks_skipped']}, buckets {s_['buckets']}, samples "
+              f"{s_['samples']}")
+        out[tag] = img
+        total += fwd
+    db = psnr(out["2l"].clamp(0, 1), out["1l"].clamp(0, 1))
+    print(f"[parity] 2l vs 1l fixed budget (flat_frac 0.375): {db:.2f} dB "
+          f"(bench.py:281-299's self-check, a gate here: >= "
+          f"{MIN_PARITY_DB})")
+    check(db >= MIN_PARITY_DB, f"2l vs 1l {db:.2f} dB < {MIN_PARITY_DB}")
+
+    dws = os.path.join(ws, "dense_cli")
+    t0 = time.perf_counter()
+    tr = main_nerf.main([
+        "synthetic", "--workspace", dws, "--iters", "60", "--num_rays", "128",
+        "--H", "32", "--W", "32", "--bound", "1.0", "--dense_render",
+        "--num_steps", "32", "--upsample_steps", "0", "--min_near", "0.05",
+        "--log2_hashmap_size", "13", "--eval_interval", "1000", "--device",
+        "cuda"])
+    ckpts = os.listdir(os.path.join(dws, "checkpoints"))
+    print(f"[parity] --dense_render CLI (xla backend, 60 steps at 32x32): "
+          f"{time.perf_counter() - t0:.2f} s, val PSNR "
+          f"{tr.eval_history[-1]['psnr']:.2f} dB, checkpoints {sorted(ckpts)}")
+    check("ngp_step0000060.npz" in ckpts and tr.use_dense,
+          f"the --dense_render CLI wrote {ckpts}")
+    return total
 
 
 def pth_round_trip(tr, ws):

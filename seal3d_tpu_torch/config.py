@@ -71,10 +71,12 @@ def common_parser(desc: str) -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args):
+def refuse_unported(args, cli: str = "nerf"):
     """Raise NotImplementedError, naming the ROADMAP.md item, for the CLI
     options whose code is not ported yet; raise RuntimeError where the run
-    asks for the card (the default) and there is none."""
+    asks for the card (the default) and there is none. cli: 'nerf'
+    (main_nerf) or 'seal' (main_SealNeRF, whose edit is not ported at bound
+    > 1 nor through the dense renderer)."""
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         raise RuntimeError("no CUDA device (pass --device cpu to run the "
@@ -82,13 +84,12 @@ def refuse_unported(args):
     item = None
     if args.gui or args.save_mesh:
         item = ("--gui and --save_mesh", "Other backends and families")
-    elif args.dense_render:
-        item = ("--dense_render", "1l eval")
     elif (args.error_map or getattr(args, "clip_text", "")
           or getattr(args, "rand_pose", -1) >= 0):
         item = ("--error_map, --clip_text and --rand_pose", "Train step")
-    elif args.bound > 1 and not args.test:
-        item = ("training at bound > 1 (multi-cascade march)", "1l eval")
+    elif cli == "seal" and (args.dense_render or args.bound > 1):
+        item = ("Seal editing at bound > 1 or through --dense_render",
+                "Seal editing: what stays")
     if item:
         raise NotImplementedError(f"{item[0]}: not ported yet (ROADMAP.md "
                                   f"Queue 1, '{item[1]}')")

@@ -1,7 +1,8 @@
 """Procedural analytic scene + ground-truth renderer (port of the
 `SyntheticScene` of seal3d_tpu/data/synthetic.py): colored blobs, a box and
-a torus inside [-bound, bound]^3, rendered with the dense compositor. The
-hard, wide and dynamic variants are not on the ported path.
+a torus inside [-bound, bound]^3, rendered with the dense compositor; and
+`WideSyntheticScene`, its bound-2 variant with content outside [-1, 1]^3.
+The hard and dynamic variants are not on the ported path.
 """
 
 from __future__ import annotations
@@ -15,6 +16,32 @@ from seal3d_tpu_torch.data.provider import NeRFDataset, rand_poses
 from seal3d_tpu_torch.data.rays import get_full_rays
 from seal3d_tpu_torch.ops.composite import composite_dense
 
+EDGE_K = 60.0  # edge sharpness of the smooth indicators
+
+
+def _const(x: torch.Tensor, v) -> torch.Tensor:
+    return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+
+def _ball(x, c, r):
+    d = torch.linalg.norm(x - _const(x, c), dim=-1) - r
+    return torch.sigmoid(-EDGE_K * d)
+
+
+def _box(x, c, half):
+    q = (x - _const(x, c)).abs() - _const(x, half)
+    d = (torch.linalg.norm(q.clamp(min=0.0), dim=-1)
+         + q.amax(-1).clamp(max=0.0))
+    return torch.sigmoid(-EDGE_K * d)
+
+
+def _torus(x, c, big_r, r):
+    p = x - _const(x, c)
+    q = torch.stack([torch.sqrt(p[..., 0] ** 2 + p[..., 2] ** 2) - big_r,
+                     p[..., 1]], -1)
+    d = torch.linalg.norm(q, dim=-1) - r
+    return torch.sigmoid(-EDGE_K * d)
+
 
 @dataclass(frozen=True)
 class SyntheticScene:
@@ -25,32 +52,10 @@ class SyntheticScene:
 
     def density(self, x: torch.Tensor) -> torch.Tensor:
         """[..., 3] -> [...] sigma (smooth indicators)."""
-        k = 60.0  # edge sharpness
-
-        def const(v):
-            return torch.tensor(v, dtype=x.dtype, device=x.device)
-
-        def ball(c, r):
-            d = torch.linalg.norm(x - const(c), dim=-1) - r
-            return torch.sigmoid(-k * d)
-
-        def box(c, half):
-            q = (x - const(c)).abs() - const(half)
-            d = (torch.linalg.norm(q.clamp(min=0.0), dim=-1)
-                 + q.amax(-1).clamp(max=0.0))
-            return torch.sigmoid(-k * d)
-
-        def torus(c, big_r, r):
-            p = x - const(c)
-            q = torch.stack([torch.sqrt(p[..., 0] ** 2 + p[..., 2] ** 2) - big_r,
-                             p[..., 1]], -1)
-            d = torch.linalg.norm(q, dim=-1) - r
-            return torch.sigmoid(-k * d)
-
-        occ = (ball([0.35, 0.1, 0.0], 0.22)
-               + ball([-0.3, -0.05, 0.25], 0.18)
-               + box([0.0, -0.35, 0.0], [0.45, 0.08, 0.45])
-               + torus([0.0, 0.25, -0.2], 0.28, 0.09))
+        occ = (_ball(x, [0.35, 0.1, 0.0], 0.22)
+               + _ball(x, [-0.3, -0.05, 0.25], 0.18)
+               + _box(x, [0.0, -0.35, 0.0], [0.45, 0.08, 0.45])
+               + _torus(x, [0.0, 0.25, -0.2], 0.28, 0.09))
         return self.density_scale * occ.clamp(0.0, 1.0)
 
     def color(self, x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
@@ -106,3 +111,27 @@ class SyntheticScene:
         return NeRFDataset(poses=poses.astype(np.float32),
                            images=np.stack(images), intrinsics=intr, h=h, w=w,
                            radius=radius)
+
+
+@dataclass(frozen=True)
+class WideSyntheticScene(SyntheticScene):
+    """Unbounded-style scene for multi-cascade (bound 2) runs: a central
+    object plus satellites outside [-1, 1]^3, so that cascade 1 carries
+    content; cameras orbit wider (radius 4, fov 58 degrees)."""
+
+    bound: float = 2.0
+
+    def density(self, x: torch.Tensor) -> torch.Tensor:
+        occ = (_ball(x, [0.0, 0.05, 0.0], 0.3)                  # cascade 0
+               + _box(x, [0.0, -0.5, 0.0], [0.6, 0.08, 0.6])   # cascade 0
+               + _ball(x, [1.45, 0.1, 0.2], 0.28)              # cascade 1
+               + _ball(x, [-1.3, -0.15, -0.9], 0.25)           # cascade 1
+               + _box(x, [0.2, 0.1, 1.5], [0.3, 0.25, 0.12]))  # cascade 1
+        return self.density_scale * occ.clamp(0.0, 1.0)
+
+    def make_dataset(self, n_views: int = 24, h: int = 128, w: int = 128,
+                     radius: float = 4.0, seed: int = 0, fov_deg: float = 58.0,
+                     device=None) -> NeRFDataset:
+        return SyntheticScene.make_dataset(self, n_views=n_views, h=h, w=w,
+                                           radius=radius, seed=seed,
+                                           fov_deg=fov_deg, device=device)

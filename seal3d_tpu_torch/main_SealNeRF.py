@@ -149,7 +149,7 @@ def main(argv=None) -> SealTrainer:
     parser = add_seal_args(common_parser("seal3d-tpu Seal editing (NGP, "
                                          "PyTorch port)"))
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    refuse_unported(args, cli="seal")
     backend, log2t, gridtype = grid_defaults(args)
     fcfg = NGPConfig(bound=args.bound, log2_hashmap_size=log2t,
                      grid_backend=backend, gridtype=gridtype,

@@ -15,9 +15,12 @@ only, as the reference does: the EMA params that renders use, the
 optimizer state and the occupancy grid keep their init values (ROADMAP.md
 Queue 3). `--grid_backend bucket` (the reference's T=2^19 hash grid) and
 `--grid_backend pallas` (T=2^15, levels padded) select the hash-encode
-kernels. The GUI, mesh export, the dense renderer, error-map sampling,
-CLIP-guided random poses and bound > 1 are not ported yet (ROADMAP.md
-Queue 1) and raise NotImplementedError.
+kernels. The defaults `--bound 2.0 --dt_gamma 1/128` train the two-cascade
+field with the cone-stepped single-level march (the reference trains bound
+2 at `--lr 3e-3`: lr 1e-2 collapses the field there); `--dense_render`
+trains and renders through the dense oracle, with no occupancy grid. The
+GUI, mesh export, error-map sampling and CLIP-guided random poses are not
+ported yet (ROADMAP.md Queue 1) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ def main(argv=None) -> Trainer:
                       device=args.device)
 
     tr = Trainer(ngp, fcfg, opts, tcfg, dataset=ds, seed=args.seed,
-                 device=args.device, name="ngp")
+                 device=args.device, name="ngp", use_dense=args.dense_render)
     tr.init_state()
     path = args.ckpt
     if path == "latest" and tcfg.workspace:

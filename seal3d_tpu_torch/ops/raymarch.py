@@ -82,23 +82,38 @@ def occupancy_at(x: torch.Tensor, dt: torch.Tensor, bitfield: torch.Tensor,
 
 
 def coarse_tighten(rays_o, rays_d, bitfield, nears, fars, cascades: int,
-                   bound: float, n_steps: int = 64):
-    """Per-ray [near, far] tightening from the 16^3 coarse occupancy view (64
-    consecutive bitfield bytes = one 8^3 fine block = one coarse cell).
-    Single cascade; the reference's per-mip views (bound > 1) belong to the
-    single-level march."""
-    if cascades != 1:
-        raise NotImplementedError(
-            "multi-cascade coarse tightening is not ported yet: ROADMAP.md "
-            "Queue 1, '1l eval'")
+                   bound: float, n_steps: int = 64, dt_gamma: float = 0.0,
+                   max_steps: int = 1024):
+    """Per-ray [near, far] tightening from 16^3 coarse occupancy views (64
+    consecutive bitfield bytes = one 8^3 fine block = one coarse cell). With
+    several cascades (bound > 1) there is one view per mip, and each coarse
+    sample is tested at the mip the fine march would use there: the larger
+    of mip_from_pos and mip_from_dt under the fine ladder's dt schedule
+    (clamp(t * dt_gamma, dt_min, dt_max), or dt_min when dt_gamma == 0)."""
     n = n_steps
     frac = (torch.arange(n, dtype=torch.float32, device=nears.device) + 0.5) / n
     tc = nears[:, None] + frac[None, :] * (fars - nears)[:, None]
     xyz = rays_o[:, None, :] + tc[..., None] * rays_d[:, None, :]
-    coarse = bitfield.reshape(4096, 64).amax(-1) > 0
-    cell = (((xyz / bound) * 0.5 + 0.5) * 16.0).clamp(0.0, 15.0) \
-        .to(torch.int64)
-    occ = coarse[morton3d(cell)] & (tc < fars[:, None])
+    if cascades == 1:
+        coarse = bitfield.reshape(4096, 64).amax(-1) > 0
+        cell = (((xyz / bound) * 0.5 + 0.5) * 16.0).clamp(0.0, 15.0) \
+            .to(torch.int64)
+        occ = coarse[morton3d(cell)]
+    else:
+        coarse = (bitfield.reshape(cascades, 4096, 64).amax(-1) > 0).reshape(-1)
+        dt_min = 2.0 * SQRT3 / max_steps
+        dt_max = 2.0 * SQRT3 * bound / GRID_SIZE
+        if dt_gamma > 0.0:
+            dt = (tc * dt_gamma).clamp(dt_min, dt_max)
+        else:
+            dt = torch.full_like(tc, dt_min)
+        mip = torch.maximum(mip_from_pos(xyz, cascades),
+                            mip_from_dt(dt, cascades))
+        mip_bound = torch.exp2(mip.to(torch.float32)).clamp(max=bound)
+        cell = ((xyz / mip_bound[..., None] * 0.5 + 0.5) * 16.0) \
+            .clamp(0.0, 15.0).to(torch.int64)
+        occ = coarse[mip * 4096 + morton3d(cell)]
+    occ = occ & (tc < fars[:, None])
     any_hit = occ.any(dim=1)
     occ_i = occ.to(torch.uint8)
     first = torch.argmax(occ_i, dim=1).to(torch.float32)
@@ -179,7 +194,8 @@ def group_plan(rays_o, rays_d, bitfield, bound: float, cascades: int,
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
     if coarse_steps > 0:
         nears, fars = coarse_tighten(rays_o, rays_d, bitfield, nears, fars,
-                                     cascades, bound, n_steps=coarse_steps)
+                                     cascades, bound, n_steps=coarse_steps,
+                                     max_steps=max_steps)
     t0 = nears
     if perturb is not None:
         t0 = t0 + perturb * dt_min
@@ -413,7 +429,8 @@ def march_candidates(rays_o, rays_d, bitfield, bound: float, cascades: int,
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
     if coarse_steps > 0:
         nears, fars = coarse_tighten(rays_o, rays_d, bitfield, nears, fars,
-                                     cascades, bound, n_steps=coarse_steps)
+                                     cascades, bound, n_steps=coarse_steps,
+                                     dt_gamma=dt_gamma, max_steps=max_steps)
     ts, dts, valid = candidate_ts(nears, fars, num_candidates, dt_gamma,
                                   bound, max_steps, perturb)
     xyz = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
@@ -436,7 +453,7 @@ class MarchedGrid(NamedTuple):
     valid: torch.Tensor   # [N, K] bool
 
 
-def _ray_stride_keep(valid: torch.Tensor, k: int):
+def ray_stride_keep(valid: torch.Tensor, k: int):
     """Per-ray stride subsample of over-k rays: (keep [N, C], stride [N, 1])
     keeping every stride-th valid candidate, stride = max(ceil(count/k), 1)."""
     rank = torch.cumsum(valid.to(torch.int64), dim=1)
@@ -450,7 +467,7 @@ def compact_topk(ts, dts, valid, rays_o, rays_d, k: int) -> MarchedGrid:
     here the k smallest of the unique keys idx (kept) / idx + C (not kept));
     deltas scaled by the per-ray stride."""
     n, c = ts.shape
-    keep, stride = _ray_stride_keep(valid, k)
+    keep, stride = ray_stride_keep(valid, k)
     dts = dts * stride.to(dts.dtype)
     idx = torch.arange(c, dtype=torch.int64, device=ts.device)[None, :]
     sel = torch.sort(torch.where(keep, idx, idx + c), dim=1).values[:, :k]
@@ -484,7 +501,7 @@ def compact_flat_direct(ts, dts, valid, rays_o, rays_d, k: int,
     thinning over the global kept rank, each ray's deltas rescaled by its
     kept fraction), then the sort-pack of the kept flat indices."""
     n, c = ts.shape
-    keep, stride = _ray_stride_keep(valid, k)
+    keep, stride = ray_stride_keep(valid, k)
     dts = dts * stride.to(dts.dtype)
     flat_keep = _bresenham_keep(keep.reshape(-1), budget)
     keep2 = flat_keep.reshape(n, c)

@@ -1,13 +1,16 @@
-"""Volume renderer (port of seal3d_tpu/render/renderer.py `render_rays`).
+"""Volume renderer (port of seal3d_tpu/render/renderer.py `render_rays`,
+`sample_pdf` and `render_rays_dense`).
 
 `render_rays` marches a ray batch, queries the field once on the samples and
 composites them. Its branches, as in the reference: the packed flat branch
 (flat_frac < 1) with the two-level march (the -O eval and full-image point;
 with `tl_kernel` its group plan comes from the ladder kernel K4)
 or the single-level march (the -O train point once the adaptive budget has
-picked a bucket), and the [N, K] grid branch (flat_frac None: the train
-steps before the first budget retune). The transmittance-terminated rounds,
-the legacy flat path and the dense oracle raise NotImplementedError.
+picked a bucket, and every eval at bound > 1), and the [N, K] grid branch
+(flat_frac None: the train steps before the first budget retune). The
+transmittance-terminated rounds and the legacy flat path raise
+NotImplementedError. `render_rays_dense` is the dense oracle: stratified
+samples, then importance samples from their weights (`--dense_render`).
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from seal3d_tpu_torch.ops.raymarch import (SQRT3, MarchedRays,
                                            march_rays_flat,
                                            march_rays_flat_2level,
                                            march_rays_flat_2level_kernel,
-                                           march_rays_grid)
+                                           march_rays_grid,
+                                           near_far_from_aabb)
 
 
 @dataclass(frozen=True)
@@ -201,3 +205,93 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
     image = out["image"] + (1.0 - out["weights_sum"])[:, None] * bg_color
     return {"image": image, "depth": out["depth"],
             "weights_sum": out["weights_sum"], "num_samples": num_samples}
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-CDF samples of intervals: bins [N, K+1] edges, weights [N, K]
+    -> [N, n_samples] positions. u: [N, n_samples] uniforms in [0, 1) (the
+    reference draws them from its key), or None for the deterministic
+    midpoints linspace(0.5 / n, 1 - 0.5 / n, n)."""
+    n, k = weights.shape
+    weights = weights + 1e-5
+    pdf = weights / weights.sum(-1, keepdim=True)
+    cdf = torch.cat([pdf.new_zeros((n, 1)), torch.cumsum(pdf, -1)], -1)
+    if u is None:
+        u = torch.linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples,
+                           device=weights.device).expand(n, n_samples)
+    idx = torch.searchsorted(cdf, u.contiguous(), right=True) - 1
+    idx = idx.clamp(0, k - 1)
+    cdf_lo = torch.gather(cdf, 1, idx)
+    cdf_hi = torch.gather(cdf, 1, idx + 1)
+    bins_lo = torch.gather(bins, 1, idx)
+    bins_hi = torch.gather(bins, 1, idx + 1)
+    denom = torch.where(cdf_hi - cdf_lo < 1e-5, 1.0, cdf_hi - cdf_lo)
+    return bins_lo + (u - cdf_lo) / denom * (bins_hi - bins_lo)
+
+
+def render_rays_dense(params, field, cfg, rays_o, rays_d, opts: RenderOptions,
+                      bg_color=1.0, perturb: bool = False,
+                      z_jitter: Optional[torch.Tensor] = None,
+                      pdf_u: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None):
+    """The dense oracle: opts.num_steps stratified samples per ray over its
+    interval in the scene box (opts.aabb), a coarse pass of `field.density` (no gradient) whose
+    composite weights place opts.upsample_steps inverse-CDF samples, both
+    sets merged in order, then one `field.apply` and `composite_dense`.
+    perturb: jitter the stratified samples by z_jitter [N, num_steps] in
+    [0, 1) (centred, times the sample spacing) and draw the importance
+    samples from pdf_u [N, upsample_steps]; either, where None, is drawn
+    from `generator`. Without perturb: no jitter, midpoint uniforms.
+    Returns dict(image [N, 3], depth [N], weights_sum [N], num_samples []:
+    the samples composited; the reference returns no count)."""
+    if opts.bg_radius > 0:
+        raise _not_ported("the background net", "Other backends and families")
+    n, dev = rays_o.shape[0], rays_o.device
+    aabb = torch.tensor(opts.aabb, dtype=torch.float32, device=dev)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, opts.min_near)
+    nears = nears.clamp(max=100.0)   # keep missed rays finite
+    fars = fars.clamp(max=100.1)
+    k = opts.num_steps
+    z = torch.linspace(0.0, 1.0, k, device=dev)
+    z = nears[:, None] + (fars - nears)[:, None] * z[None, :]
+    sample_dist = (fars - nears) / k
+    if perturb:
+        if z_jitter is None:
+            z_jitter = torch.rand(z.shape, generator=generator, device=dev)
+        z = z + (z_jitter - 0.5) * sample_dist[:, None]
+
+    def positions(zv):
+        xyz = rays_o[:, None] + zv[..., None] * rays_d[:, None]
+        return xyz.clamp(-opts.bound, opts.bound)
+
+    def deltas_of(zv):
+        return torch.cat([torch.diff(zv, dim=-1), sample_dist[:, None]], -1)
+
+    if opts.upsample_steps > 0:
+        with torch.no_grad(), record_function("render.dense_coarse"):
+            sigma_c = field.density(params, cfg,
+                                    positions(z).reshape(-1, 3))["sigma"]
+            sigma_c = sigma_c.reshape(z.shape) * opts.density_scale
+            w = composite_dense(sigma_c, z.new_zeros((*z.shape, 3)),
+                                deltas_of(z), z)["weights"]
+            if perturb and pdf_u is None:
+                pdf_u = torch.rand((n, opts.upsample_steps),
+                                   generator=generator, device=dev)
+            new_z = sample_pdf(0.5 * (z[:, 1:] + z[:, :-1]), w[:, 1:-1],
+                               opts.upsample_steps,
+                               u=pdf_u if perturb else None)
+            z = torch.sort(torch.cat([z, new_z], -1), dim=-1).values
+
+    xyz = positions(z)
+    with record_function("render.field"):
+        sigma, rgb = field.apply(params, cfg, xyz.reshape(-1, 3),
+                                 rays_d[:, None].expand(xyz.shape)
+                                 .reshape(-1, 3))
+    with record_function("render.composite"):
+        out = composite_dense(sigma.reshape(z.shape) * opts.density_scale,
+                              rgb.reshape(*z.shape, 3), deltas_of(z), z)
+    image = out["image"] + (1.0 - out["weights_sum"])[:, None] * bg_color
+    return {"image": image, "depth": out["depth"],
+            "weights_sum": out["weights_sum"],
+            "num_samples": torch.tensor(z.numel(), device=dev)}

@@ -6,15 +6,19 @@ occupancy, step). `train_step` samples a ray batch, renders it, takes the
 MSE loss and its gradient, and applies Adam (train/optim.py), the EMA and
 the `mean_count` EMA; `train` runs steps with a grid update every 16 (the
 first 16 full, then partial) and the adaptive budget's retunes;
-`render_image` renders with Morton-ordered chunks, the closed-form demand
-probe, per-chunk flat_frac buckets and zero-demand chunk skipping;
-`evaluate` scores a split and keeps the best checkpoint.
+`render_image` renders with Morton-ordered chunks, the demand probe (closed
+form for the two-level march, a candidate count for the single-level one),
+per-chunk flat_frac buckets and zero-demand chunk skipping; `evaluate`
+scores a split and keeps the best checkpoint. With `use_dense` the loss,
+`evaluate` and `render_image` go through the dense oracle
+(`render_rays_dense`) and the train loop keeps no occupancy grid.
 
 PyTorch runs eagerly, so nothing is jitted: the reference's per-bucket jit
 caches and blocked (scanned) steps have no counterpart, and the per-chunk
 buckets only size the packed buffers. The step's random numbers (image,
-pixels, background, march jitter) are a `StepRandom`, drawn from the
-trainer's device generator or handed in by a test.
+pixels, background, march jitter, or the dense oracle's sample jitter and
+importance uniforms) are a `StepRandom`, drawn from the trainer's device
+generator or handed in by a test.
 """
 
 from __future__ import annotations
@@ -33,11 +37,13 @@ from torch.profiler import record_function
 from seal3d_tpu_torch.data.rays import get_full_rays, get_rays
 from seal3d_tpu_torch.ops.ladder import pack_tables
 from seal3d_tpu_torch.ops.raymarch import (group_plan, ladder_plan_kernel,
-                                           march_rays_grid, occupancy_at)
+                                           march_candidates, march_rays_grid,
+                                           occupancy_at, ray_stride_keep)
 from seal3d_tpu_torch.render.occupancy import (OccupancyState, mark_untrained,
                                                occupancy_init,
                                                occupancy_update)
-from seal3d_tpu_torch.render.renderer import RenderOptions, render_rays
+from seal3d_tpu_torch.render.renderer import (RenderOptions, render_rays,
+                                             render_rays_dense)
 from seal3d_tpu_torch.train import checkpoint as ckpt_io
 from seal3d_tpu_torch.train.metrics import PerceptualMeter, PSNRMeter
 from seal3d_tpu_torch.train.optim import Optimizer, apply_updates
@@ -100,12 +106,15 @@ class TrainState(NamedTuple):
 
 class StepRandom(NamedTuple):
     """The random numbers of one train step; the reference draws them from
-    `jax.random.split(key, 4)` (image, pixels, background, jitter)."""
+    `jax.random.split(key, 4)` (image, pixels, background, jitter; the dense
+    oracle splits its z jitter and importance uniforms off the last)."""
 
     img_idx: torch.Tensor         # [] int64 training view
     inds: torch.Tensor            # [N] int64 flat pixel indices
     bg: Optional[torch.Tensor]    # [N, 3] random background, None = white
-    jitter: torch.Tensor          # [N] march-start jitter in [0, 1)
+    jitter: Optional[torch.Tensor]  # [N] march-start jitter in [0, 1)
+    z_jitter: Optional[torch.Tensor] = None  # [N, num_steps] dense oracle
+    pdf_u: Optional[torch.Tensor] = None     # [N, upsample_steps] dense
 
 
 def _srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
@@ -139,7 +148,7 @@ class Trainer:
 
     def __init__(self, field_mod, field_cfg, opts: RenderOptions,
                  cfg: TrainConfig, dataset=None, seed: int = 0, device=None,
-                 name: str = "ngp"):
+                 name: str = "ngp", use_dense: bool = False):
         if cfg.error_map or cfg.rand_pose >= 0:
             raise NotImplementedError(
                 "error-map ray sampling and CLIP-guided random poses are not "
@@ -153,6 +162,7 @@ class Trainer:
         self.opts = opts
         self.cfg = cfg
         self.name = name
+        self.use_dense = use_dense
         # None means the card; only an explicit "cpu" runs on the CPU
         self.device = torch.device(device if device is not None else "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -194,7 +204,7 @@ class Trainer:
         self._eval_tl_uncapped = (eval_opts.two_level_ok(cfg.eval_budget_per_ray)
                                   and eval_opts.tl_kg == -1)
         self._adaptive = (cfg.eval_adaptive and cfg.eval_flat_frac is not None
-                          and opts.compaction == "topk")
+                          and opts.compaction == "topk" and not use_dense)
 
     # ------------------------------------------------------------------ setup
 
@@ -217,7 +227,7 @@ class Trainer:
         params = ckpt_io.map_tree(params, lambda _, t: t.to(self.device))
         ema = ckpt_io.map_tree(params, lambda _, t: t.clone())
         occ = occupancy_init(self.opts.cascades, device=self.device)
-        if self.dataset is not None:
+        if self.dataset is not None and not self.use_dense:
             occ = mark_untrained(occ, self._poses, self._intrinsics,
                                  self.opts.bound)
         self.state = TrainState(params=params,
@@ -238,8 +248,15 @@ class Trainer:
         bg = None
         if self.cfg.random_bg and self._images.shape[-1] == 4:
             bg = torch.rand((n, 3), generator=gen, device=dev)
-        jitter = torch.rand((n,), generator=gen, device=dev)
-        return StepRandom(img_idx=img_idx, inds=inds, bg=bg, jitter=jitter)
+        if not self.use_dense:
+            jitter = torch.rand((n,), generator=gen, device=dev)
+            return StepRandom(img_idx=img_idx, inds=inds, bg=bg, jitter=jitter)
+        opts = self.opts
+        z_jitter = torch.rand((n, opts.num_steps), generator=gen, device=dev)
+        pdf_u = (torch.rand((n, opts.upsample_steps), generator=gen,
+                            device=dev) if opts.upsample_steps > 0 else None)
+        return StepRandom(img_idx=img_idx, inds=inds, bg=bg, jitter=None,
+                          z_jitter=z_jitter, pdf_u=pdf_u)
 
     def sample_batch(self, rand: StepRandom) -> dict:
         """Rays, ground truth and background of one step's pixels."""
@@ -257,6 +274,9 @@ class Trainer:
             gt = gt[:, :3] * gt[:, 3:] + bg * (1.0 - gt[:, 3:])
         batch = {"rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
                  "gt": gt, "bg": bg}
+        for k in ("z_jitter", "pdf_u"):   # the dense oracle's draws
+            if getattr(rand, k) is not None:
+                batch[k] = getattr(rand, k)
         if self._depths is not None:
             batch["gt_depth"] = self._depths[rand.img_idx].reshape(-1)[rand.inds]
         return batch
@@ -265,11 +285,21 @@ class Trainer:
                 jitter: Optional[torch.Tensor]):
         """(loss [], render dict) of one batch: the mean over rays of the
         MSE over RGB plus, where the batch carries `gt_depth` (a
-        teacher-proxied Seal dataset), the squared depth error."""
-        out = render_rays(params, self.field, self.fcfg, occ.bitfield,
-                          batch["rays_o"], batch["rays_d"], self.opts,
-                          bg_color=batch["bg"],
-                          aabb=self._march_aabb(occ.occ_aabb), jitter=jitter)
+        teacher-proxied Seal dataset), the squared depth error. With
+        use_dense the batch's `z_jitter` and `pdf_u` perturb the dense
+        oracle (drawn from the trainer's generator where None)."""
+        if self.use_dense:
+            out = render_rays_dense(
+                params, self.field, self.fcfg, batch["rays_o"],
+                batch["rays_d"], self.opts, bg_color=batch["bg"],
+                perturb=True, z_jitter=batch.get("z_jitter"),
+                pdf_u=batch.get("pdf_u"), generator=self.generator)
+        else:
+            out = render_rays(params, self.field, self.fcfg, occ.bitfield,
+                              batch["rays_o"], batch["rays_d"], self.opts,
+                              bg_color=batch["bg"],
+                              aabb=self._march_aabb(occ.occ_aabb),
+                              jitter=jitter)
         per_ray = ((out["image"] - batch["gt"]) ** 2).mean(-1)
         if "gt_depth" in batch:
             per_ray = per_ray + (out["depth"] - batch["gt_depth"]) ** 2
@@ -334,7 +364,8 @@ class Trainer:
     def train(self, steps: Optional[int] = None,
               log_every: int = 500) -> dict:
         """Run `steps` train steps (default cfg.max_steps) with a grid update
-        every update_grid_interval steps. The host reads the device only at
+        every update_grid_interval steps (none with use_dense: the dense
+        oracle reads no occupancy grid). The host reads the device only at
         loop entry, at logged steps and at each adaptive-budget retune.
         Fills `train_stats`: seconds of each grid update, and the wall time
         of the steps after the first TIMING_WARMUP (grid updates included).
@@ -349,7 +380,7 @@ class Trainer:
         grid_marks, w0, last = [], None, {}
         t0 = time.perf_counter()
         for i in range(1, steps + 1):
-            if step_i % cfg.update_grid_interval == 0:
+            if not self.use_dense and step_i % cfg.update_grid_interval == 0:
                 full = iter_density < cfg.full_grid_updates
                 a = clock.mark()
                 self._grid_update_fns()[0 if full else 1]()
@@ -506,47 +537,59 @@ class Trainer:
                      n_valid: int, ladder_tables=None) -> torch.Tensor:
         """[2] int64 (fine sample demand, kept-group demand) of one chunk
         marched in `aabb` (`_march_aabb`, built once per view), pad rays at
-        index >= n_valid masked out. Closed form at group
-        granularity: occupied group reps x members inside the tightened
-        interval, an upper bound of the fine repack's kept members. Where
-        the eval options take the ladder kernel K4 (`tl_kernel_ok`), the
-        two counts are sums of its outputs."""
+        index >= n_valid masked out. The two-level march (uncapped groups):
+        where the eval options take the ladder kernel K4 (`tl_kernel_ok`),
+        two sums of its outputs; where groups are tested at their own
+        stride with coarse tightening, the closed form at group granularity
+        (occupied group reps x members inside the tightened interval, an
+        upper bound of the fine repack's kept members); else the candidate
+        ladder's valid count and group_plan's kept groups. The single-level
+        march: the candidates its per-ray stride cap keeps (the packing's
+        formula), and no group demand."""
         eo = self.eval_opts
-        if self._eval_tl_uncapped and eo.tl_kernel_ok(
-                self.cfg.eval_budget_per_ray, None):
+        ek = self.cfg.eval_budget_per_ray
+        rok = (torch.arange(rays_o.shape[0], device=rays_o.device)
+               < n_valid)[:, None]
+        if self._eval_tl_uncapped and eo.tl_kernel_ok(ek, None):
             plan, cnt = ladder_plan_kernel(
                 rays_o, rays_d, bitfield, eo.bound, eo.max_steps,
                 eo.num_candidates, eo.tl_group, eo.min_near, aabb,
                 eo.coarse_steps, eo.tl_pool, tables=ladder_tables)
-            rok = torch.arange(rays_o.shape[0], device=rays_o.device) < n_valid
             return torch.stack([
-                torch.where(rok, cnt, 0.0).sum().to(torch.int64),
-                (plan.keep & rok[:, None]).sum()])
-        if not (self._eval_tl_uncapped and eo.occ_stride == eo.tl_group
-                and eo.coarse_steps > 0):
-            raise NotImplementedError(
-                "only the closed-form two-level demand probe is ported: "
-                "ROADMAP.md Queue 1, '1l eval'")
-        g = eo.tl_group
-        plan = group_plan(rays_o, rays_d, bitfield, bound=eo.bound,
-                          cascades=eo.cascades, max_steps=eo.max_steps,
-                          k=self.cfg.eval_budget_per_ray,
-                          num_candidates=eo.num_candidates, group=g,
-                          min_near=eo.min_near, aabb=aabb,
-                          coarse_steps=eo.coarse_steps, kg=-1, pool=eo.tl_pool)
-        gi = torch.arange(eo.num_candidates // g, dtype=torch.float32,
-                          device=rays_o.device)
-        tr_ = plan.t0[:, None] + gi[None, :] * (g * plan.dt_min)
-        xyz = rays_o[:, None, :] + tr_[..., None] * rays_d[:, None, :]
-        occ_f = occupancy_at(xyz, torch.full_like(tr_, plan.dt_min), bitfield,
-                             eo.cascades, eo.bound)
-        n_cand = ((plan.fars - plan.t0) / plan.dt_min).clamp(min=0.0)
-        members = (n_cand[:, None] - gi[None, :] * g).clamp(0.0, float(g))
-        rok = (torch.arange(rays_o.shape[0], device=rays_o.device)
-               < n_valid)[:, None]
-        cnt = torch.where(plan.keep & occ_f & rok, torch.ceil(members), 0.0)
-        return torch.stack([cnt.sum().to(torch.int64),
-                            (plan.keep & rok).sum()])
+                torch.where(rok[:, 0], cnt, 0.0).sum().to(torch.int64),
+                (plan.keep & rok).sum()])
+        plan = None
+        if self._eval_tl_uncapped:
+            plan = group_plan(rays_o, rays_d, bitfield, bound=eo.bound,
+                              cascades=eo.cascades, max_steps=eo.max_steps,
+                              k=ek, num_candidates=eo.num_candidates,
+                              group=eo.tl_group, min_near=eo.min_near,
+                              aabb=aabb, coarse_steps=eo.coarse_steps, kg=-1,
+                              pool=eo.tl_pool)
+            groups = (plan.keep & rok).sum()
+        if plan is not None and eo.occ_stride == eo.tl_group \
+                and eo.coarse_steps > 0:
+            g = eo.tl_group
+            gi = torch.arange(eo.num_candidates // g, dtype=torch.float32,
+                              device=rays_o.device)
+            tr_ = plan.t0[:, None] + gi[None, :] * (g * plan.dt_min)
+            xyz = rays_o[:, None, :] + tr_[..., None] * rays_d[:, None, :]
+            occ_f = occupancy_at(xyz, torch.full_like(tr_, plan.dt_min),
+                                 bitfield, eo.cascades, eo.bound)
+            n_cand = ((plan.fars - plan.t0) / plan.dt_min).clamp(min=0.0)
+            members = (n_cand[:, None] - gi[None, :] * g).clamp(0.0, float(g))
+            cnt = torch.where(plan.keep & occ_f & rok, torch.ceil(members),
+                              0.0)
+            return torch.stack([cnt.sum().to(torch.int64), groups])
+        _, _, valid = march_candidates(
+            rays_o, rays_d, bitfield, eo.bound, eo.cascades, eo.dt_gamma,
+            eo.max_steps, eo.num_candidates, min_near=eo.min_near, aabb=aabb,
+            occ_stride=eo.occ_stride, coarse_steps=eo.coarse_steps)
+        valid = valid & rok
+        if plan is not None:
+            return torch.stack([valid.sum(), groups])
+        keep, _ = ray_stride_keep(valid, ek)
+        return torch.stack([keep.sum(), torch.zeros_like(keep.sum())])
 
     def _pick_bucket(self, chunk: int, fine: int, grp: int) -> float:
         """Smallest eval bucket whose fine budget covers the chunk's demand
@@ -571,7 +614,9 @@ class Trainer:
     @torch.no_grad()
     def render_image(self, pose, h: int, w: int, bg_color: float = 1.0):
         """Full-image render of the EMA params -> (image [h, w, 3], depth
-        [h, w]) tensors, with a stats dict appended to `self.render_stats`."""
+        [h, w]) tensors, with a stats dict appended to `self.render_stats`.
+        With use_dense every chunk goes through the dense oracle, unjittered
+        (no demand probe, no skipped chunk)."""
         t_start = time.perf_counter()
         chunk = self.cfg.eval_chunk
         st = self.state
@@ -592,7 +637,8 @@ class Trainer:
         aabb = self._march_aabb(st.occ.occ_aabb)
         # the ladder kernel's views of the bitfield, once for all chunks
         tables = None
-        if self.eval_opts.tl_kernel_ok(self.cfg.eval_budget_per_ray, None):
+        if (not self.use_dense and self.eval_opts.tl_kernel_ok(
+                self.cfg.eval_budget_per_ray, None)):
             tables = pack_tables(st.occ.bitfield, self.eval_opts.tl_pool)
 
         buckets = [self.cfg.eval_flat_frac] * n_chunks
@@ -611,17 +657,27 @@ class Trainer:
                     buckets[ci] = self._pick_bucket(chunk, fine, grp)
 
         bg = torch.full((chunk, 3), bg_color, dtype=torch.float32, device=dev)
+        zero = torch.zeros((chunk,), dtype=torch.float32, device=dev)
         imgs, deps, samples = [], [], []
         for ci in range(n_chunks):
             if skip[ci]:
                 imgs.append(bg)
-                deps.append(torch.zeros((chunk,), dtype=torch.float32,
-                                        device=dev))
+                deps.append(zero)
                 continue
             opts = dataclasses.replace(self.eval_opts, flat_frac=buckets[ci])
-            out = render_rays(params, self.field, self.fcfg, st.occ.bitfield,
-                              ro_c[ci], rd_c[ci], opts, bg_color=bg, aabb=aabb,
-                              ladder_tables=tables)
+            if self.use_dense:
+                # the oracle queries every slot's samples: leave out the pad
+                # slots at the chunk's tail (the reference renders them too)
+                k = int(nv[ci])
+                out = render_rays_dense(params, self.field, self.fcfg,
+                                        ro_c[ci, :k], rd_c[ci, :k], opts,
+                                        bg_color=bg[:k])
+                out["image"] = torch.cat([out["image"], bg[k:]])
+                out["depth"] = torch.cat([out["depth"], zero[k:]])
+            else:
+                out = render_rays(params, self.field, self.fcfg,
+                                  st.occ.bitfield, ro_c[ci], rd_c[ci], opts,
+                                  bg_color=bg, aabb=aabb, ladder_tables=tables)
             imgs.append(out["image"])
             deps.append(out["depth"])
             samples.append(out["num_samples"])

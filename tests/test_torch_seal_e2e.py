@@ -147,8 +147,10 @@ def test_unported_options_raise(tmp_path):
             main_SealNeRF.main(ARGV + extra)
     argv = list(ARGV)
     argv[argv.index("--bound") + 1] = "2.0"
-    with pytest.raises(NotImplementedError, match="1l eval"):
-        main_SealNeRF.main(argv)
+    for extra in ([], ["--dense_render"]):
+        with pytest.raises(NotImplementedError,
+                           match="Seal editing: what stays"):
+            main_SealNeRF.main(argv + extra)
     for kind in ("brush", "anchor"):
         cfg_dir = tmp_path / kind
         cfg_dir.mkdir()

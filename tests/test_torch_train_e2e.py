@@ -23,7 +23,8 @@ from seal3d_tpu.train.trainer import TrainConfig as JCfg
 from seal3d_tpu.train.trainer import Trainer as JTrainer
 from seal3d_tpu_torch import main_nerf
 from seal3d_tpu_torch.config import (build_options, build_train_config,
-                                     common_parser, load_dataset)
+                                     common_parser, load_dataset,
+                                     refuse_unported)
 from seal3d_tpu_torch.data.synthetic import SyntheticScene as TScene
 from seal3d_tpu_torch.models import ngp as tngp
 from seal3d_tpu_torch.render.renderer import RenderOptions as TOpts
@@ -113,14 +114,21 @@ def test_cli_trains_bucket_backend(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise():
-    for extra in (["--error_map"], ["--dense_render"], ["--gui"],
+    for extra in (["--error_map"], ["--gui"], ["--save_mesh"],
                   ["--rand_pose", "0"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main_nerf.main(ARGV + extra)
-    argv = list(ARGV)
-    argv[argv.index("--bound") + 1] = "2.0"
-    with pytest.raises(NotImplementedError, match="1l eval"):
-        main_nerf.main(argv)
+    # bound > 1 (the CLI's default) and --dense_render are ported: main_nerf
+    # takes them, the Seal CLI still refuses them
+    for extra in (["--dense_render"], []):
+        argv = ARGV + extra
+        if not extra:
+            argv = [a for a in ARGV if a not in ("--bound", "1.0")]
+        args = common_parser("test").parse_args(argv)
+        assert args.bound == (1.0 if extra else 2.0)
+        refuse_unported(args)
+        with pytest.raises(NotImplementedError, match="Seal editing"):
+            refuse_unported(args, cli="seal")
 
 
 def _jax_state_with_moments(seed=0):
