@@ -181,6 +181,25 @@ Phases, each of which raises (exit code != 0) when it fails:
    >= 25 dB (bench.py:281-299's self-check, a gate here); then the
    `--dense_render` CLI at a tiny size (60 steps at 32x32, `xla`): its
    step checkpoint is written.
+20. the Seal tools (it runs last, after phase 18): (a)-(c) the brush with
+   a line stroke on the box's top face, the brush with a curve stroke on
+   ball 1's cap and the anchor pulled up from that cap, each through
+   main_SealNeRF on phase 7's teacher at phase 14's recipe and gates (the
+   seal.json written into the run's workspace), its stage seconds, and K1
+   against its plain version (<= 1e-5) on the mapped samples of the
+   busiest proxy chunk, whose peak device memory is printed; (d) a bbox
+   edit at bound 2 through the SealTrainer API on phase 18a's state,
+   moving WideSyntheticScene's satellite ball on cascade 1 up by 0.3: its
+   cascade-1 force-fill in the student's bitfield while it trains, the
+   moved ball occupied after restore_grid, the edit gates on 4 held-out
+   views; then main_SealNeRF at the CLI's default bound and dt_gamma
+   (`-O --lr 3e-3`, 128x128) with the line brush on phase 18d's
+   checkpoint: a finite student PSNR; (e) main_SealNeRF --dense_render at
+   24x24 with its teacher trained through the dense oracle: both
+   checkpoints written; (f) extract_geometry at 256^3 on phase 7's state
+   and on (a)'s student: K1 launched once per 2^16-point chunk, vertices
+   inside the bound, the lifted stroke in the edited mesh alone. K1's
+   launch counts equal the field calls of every edit.
 The line before the last is the kernel table as JSON (eight kernels, each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
@@ -458,11 +477,18 @@ def main(argv=None):
         k1_measure_phase(dev, k1_bwd, step_case, chunk, seal_case,
                          baselines["halo_encode.cu"])
         lap("16")
-        fwd, bwd, err = bound2_phase(dev, ws)
+        fwd, bwd, err, wide_ckpt, b2_cli_ckpt = bound2_phase(dev, ws)
         k1_fwd["launches"] += fwd
         k1_bwd["launches"] += bwd
         k1_fwd["max_abs_err"] = max(k1_fwd["max_abs_err"], err)
         lap("18")
+        torch.cuda.empty_cache()
+        fwd, bwd, err = seal_tools_phase(dev, os.path.join(ws, "seal_tools"),
+                                         teacher_ckpt, wide_ckpt, b2_cli_ckpt)
+        k1_fwd["launches"] += fwd
+        k1_bwd["launches"] += bwd
+        k1_fwd["max_abs_err"] = max(k1_fwd["max_abs_err"], err)
+        lap("20")
     print(f"[time] wall seconds by phase: {json.dumps(seconds)}")
     kernels = [k1_fwd, k1_bwd, k1_tp, *hash_rows, k4, *k5_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1369,12 +1395,10 @@ def seal_phase(dev, ws, teacher_ckpt):
     the K1 arguments of its first pretraining batch."""
     from seal3d_tpu_torch import main_SealNeRF
     from seal3d_tpu_torch.config import common_parser, load_dataset
-    from seal3d_tpu_torch.models import ngp
     from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_bwd
     from seal3d_tpu_torch.ops.hash_encode import hash_encode, hash_encode_bwd
     from seal3d_tpu_torch.ops.ladder import ladder_plan
     from seal3d_tpu_torch.seal.renderer import hack_bitfield
-    from seal3d_tpu_torch.train.trainer import Trainer
 
     epochs, steps = SEAL_EPOCHS, SEAL_STEPS
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1397,98 +1421,21 @@ def seal_phase(dev, ws, teacher_ckpt):
     check(hash_encode.launches == 0 and hash_encode_bwd.launches == 0
           and ladder_plan.launches == 0, "the -O edit launched other kernels")
 
-    for name in ("timer.json", "seal.json", "options.json"):
-        check(os.path.exists(os.path.join(ws, name)), f"{name} not written")
-    with open(os.path.join(ws, "timer.json")) as f:
-        timer = json.load(f)
-    losses = st.pretrain_losses
-    print(f"[seal] main_SealNeRF bbox edit at 256x256: {cli_s:.2f} s in all; "
-          f"pretrain loss {losses[0]:.5f} -> {losses[-1]:.5f} over "
-          f"{len(losses)} epochs")
-    check(len(losses) == epochs and losses[-1] < losses[0]
-          and np.all(np.isfinite(losses)), f"pretrain losses {losses}")
-    ds = st.dataset
-    check(ds.depths is not None and ds.images.dtype == np.uint8
-          and float(ds.depths.max()) > 0, "the proxied dataset has no depths")
+    timer = edit_outputs(st, ws, epochs, f"[seal] main_SealNeRF bbox edit "
+                                         f"at 256x256: {cli_s:.2f} s in all;")
 
     # every field call went through K1: count them
-    shells = {k: (int(v["weight"].sum()), v["n_batches"])
-              for k, v in st.pretrain_data.items()}
-    queries = sum(-(-n // 2**18) for n, _ in shells.values())
-    batches = epochs * sum(nb for _, nb in shells.values())
-    grid = st.train_stats["grid_updates"]
-    n_full = sum(1 for full, _ in grid if full) + 2   # hacked start, restore
-    n_part = sum(1 for full, _ in grid if not full)
-    ps = st.proxy_stats
-    proxy_chunks = ps["chunks_grid"] + ps["chunks_packed"]
-    test_chunks = sum(s_["chunks_rendered"] for s_ in st.render_stats)
-    field_calls = (queries + batches + steps + 16 * n_full + 3 * n_part
-                   + proxy_chunks + test_chunks)
-    print(f"[seal] shells (points, batches) {shells}; K1 launches: backward "
-          f"{bwd} ({batches} pretrain batches + {steps} finetune steps), "
-          f"forward {fwd} (field calls {field_calls}: {queries} teacher "
-          f"queries, {batches} + {steps} steps, {n_full}x16 + {n_part}x3 "
-          f"grid-update chunks, {proxy_chunks} proxy chunks of {ps}, "
-          f"{test_chunks} test chunks)")
-    check(bwd == batches + steps, f"K1 bwd launches {bwd} != "
-                                  f"{batches + steps}")
-    check(fwd == field_calls, f"K1 fwd launches {fwd} != field calls "
-                              f"{field_calls}")
+    edit_launch_check(st, epochs, steps, fwd, bwd, "[seal]")
     check(len(st.render_stats) == 8
           and all(s_["nonfinite"] == 0 for s_ in st.render_stats),
           "edited test views: count or non-finite pixels")
-
-    wall = (timer["pretrain_init"] + timer["pretraining_total"]
-            + timer["proxy_dataset"] + timer["training_total"])
-    ts = st.train_stats
-    print(f"[seal] init {timer['pretrain_init']:.3f} s, pretrain "
-          f"{timer['pretraining_avg']:.4f} s per epoch "
-          f"({timer['pretraining_total']:.2f} s), proxy "
-          f"{timer['proxy_dataset']:.3f} s for {ps['views']} views, finetune "
-          f"{timer['training_total']:.2f} s "
-          f"({ts['window_s'] / ts['window_steps'] * 1e3:.3f} ms per step "
-          f"after the first {steps - ts['window_steps']}, grid updates "
-          f"included; final flat_frac {st.opts.flat_frac}); shares of "
-          f"{wall:.2f} s: init {timer['pretrain_init'] / wall:.3f} pretrain "
-          f"{timer['pretraining_total'] / wall:.3f} proxy "
-          f"{timer['proxy_dataset'] / wall:.3f} finetune "
-          f"{timer['training_total'] / wall:.3f}")
+    print_edit_timer(st, timer, steps, "[seal]")
 
     # the edit took: student vs mapped teacher, unedited teacher vs the same
     cli = common_parser("chip_smoke").parse_args(
         O_ARGV + ["--H", "256", "--W", "256", "--workspace", ws])
     val = load_dataset(cli, "val", device=dev)
-    plain_teacher = Trainer(ngp, st.fcfg, st.opts, st.cfg, dataset=val,
-                            device=dev, name="teacher_unedited")
-    plain_teacher.load_checkpoint(teacher_ckpt)
-    # whole images, and the pixels the edit changes: those where the mapped
-    # teacher's view differs from the unedited teacher's by > 0.1
-    ps_student, ps_teacher = [], []
-    n_px, se_student, se_teacher = 0, 0.0, 0.0
-    for pose in val.poses[:4]:
-        target, _ = st.render_teacher_view(pose, val.h, val.w)
-        edited = st.render_image(pose, val.h, val.w)[0]
-        unedited = plain_teacher.render_image(pose, val.h, val.w)[0]
-        ps_student.append(psnr(edited, target))
-        ps_teacher.append(psnr(unedited, target))
-        mask = (target - unedited).abs().amax(-1) > 0.1
-        n_px += int(mask.sum())
-        se_student += float(((edited - target) ** 2)[mask].sum())
-        se_teacher += float(((unedited - target) ** 2)[mask].sum())
-    check(n_px >= 100, f"the edit changes only {n_px} pixels of 4 val views")
-    edit_student = -10.0 * np.log10(se_student / (3 * n_px))
-    edit_teacher = -10.0 * np.log10(se_teacher / (3 * n_px))
-    print(f"[seal] 4 val poses against the mapped teacher: student "
-          f"{np.mean(ps_student):.2f} dB {[round(v, 2) for v in ps_student]}, "
-          f"unedited teacher {np.mean(ps_teacher):.2f} dB "
-          f"{[round(v, 2) for v in ps_teacher]}; on the {n_px} pixels the "
-          f"edit changes: student {edit_student:.2f} dB, unedited teacher "
-          f"{edit_teacher:.2f} dB")
-    check(np.mean(ps_student) >= MIN_EDIT_PSNR,
-          f"student PSNR {np.mean(ps_student):.2f} < {MIN_EDIT_PSNR}")
-    check(edit_teacher < edit_student,
-          "on the edited pixels the unedited teacher is as close to the "
-          "target as the student: the edit did not take")
+    edit_gates(dev, st, teacher_ckpt, val, "[seal]")
 
     forced = hack_bitfield(torch.zeros_like(st.state.occ.bitfield),
                            st._hack_bytes, st._hack_masks)
@@ -1519,6 +1466,502 @@ def seal_phase(dev, ws, teacher_ckpt):
           f"edited views differ with K4: {d_img} {d_dep}")
     check(k4 > 0 and k4 == expect, f"K4 launches {k4} != {expect}")
     return fwd, bwd, k4, seal_case
+
+
+def edit_outputs(st, ws, epochs, head):
+    """The files and the stage-1 result of one edit through the CLI or the
+    API: timer.json, seal.json and options.json written, the pretrain loss
+    falling over `epochs` epochs, the proxied dataset carrying depths ->
+    the timer dict."""
+    for name in ("timer.json", "seal.json", "options.json"):
+        check(os.path.exists(os.path.join(ws, name)), f"{name} not written")
+    with open(os.path.join(ws, "timer.json")) as f:
+        timer = json.load(f)
+    losses = st.pretrain_losses
+    print(f"{head} pretrain loss {losses[0]:.5f} -> {losses[-1]:.5f} over "
+          f"{len(losses)} epochs")
+    check(len(losses) == epochs and losses[-1] < losses[0]
+          and np.all(np.isfinite(losses)), f"pretrain losses {losses}")
+    ds = st.dataset
+    check(ds.depths is not None and ds.images.dtype == np.uint8
+          and float(ds.depths.max()) > 0, "the proxied dataset has no depths")
+    return timer
+
+
+def edit_launch_check(st, epochs, steps, fwd, bwd, tag):
+    """K1's launches over one edit against its field calls: the backward
+    once per pretrain batch and finetune step; the forward once per teacher
+    query chunk (2^18 shell points), pretrain batch, finetune step,
+    grid-update chunk (a full update 16 a cascade, a partial one 3; the
+    hacked start and restore_grid are full), proxy chunk rendered and
+    edited test-view chunk rendered."""
+    shells = {k: (int(v["weight"].sum()), v["n_batches"])
+              for k, v in st.pretrain_data.items()}
+    queries = sum(-(-n // 2**18) for n, _ in shells.values())
+    batches = epochs * sum(nb for _, nb in shells.values())
+    grid = st.train_stats["grid_updates"]
+    n_full = sum(1 for full, _ in grid if full) + 2   # hacked start, restore
+    n_part = sum(1 for full, _ in grid if not full)
+    cas = st.opts.cascades
+    ps = st.proxy_stats
+    proxy_chunks = ps["chunks_grid"] + ps["chunks_packed"]
+    test_chunks = sum(s_["chunks_rendered"] for s_ in st.render_stats)
+    field_calls = (queries + batches + steps + cas * (16 * n_full + 3 * n_part)
+                   + proxy_chunks + test_chunks)
+    print(f"{tag} shells (points, batches) {shells}; K1 launches: backward "
+          f"{bwd} ({batches} pretrain batches + {steps} finetune steps), "
+          f"forward {fwd} (field calls {field_calls}: {queries} teacher "
+          f"queries, {batches} + {steps} steps, {n_full}x{16 * cas} + "
+          f"{n_part}x{3 * cas} grid-update chunks, {proxy_chunks} proxy "
+          f"chunks of {ps}, {test_chunks} test chunks)")
+    check(bwd == batches + steps, f"{tag} K1 bwd launches {bwd} != "
+                                  f"{batches + steps}")
+    check(fwd == field_calls, f"{tag} K1 fwd launches {fwd} != field calls "
+                              f"{field_calls}")
+
+
+def print_edit_timer(st, timer, steps, tag):
+    """The stage seconds of timer.json and each stage's share of them."""
+    wall = (timer["pretrain_init"] + timer["pretraining_total"]
+            + timer["proxy_dataset"] + timer["training_total"])
+    ts = st.train_stats
+    print(f"{tag} init {timer['pretrain_init']:.3f} s, pretrain "
+          f"{timer['pretraining_avg']:.4f} s per epoch "
+          f"({timer['pretraining_total']:.2f} s), proxy "
+          f"{timer['proxy_dataset']:.3f} s for {st.proxy_stats['views']} "
+          f"views, finetune {timer['training_total']:.2f} s "
+          f"({ts['window_s'] / ts['window_steps'] * 1e3:.3f} ms per step "
+          f"after the first {steps - ts['window_steps']}, grid updates "
+          f"included; final flat_frac {st.opts.flat_frac}); shares of "
+          f"{wall:.2f} s: init {timer['pretrain_init'] / wall:.3f} pretrain "
+          f"{timer['pretraining_total'] / wall:.3f} proxy "
+          f"{timer['proxy_dataset'] / wall:.3f} finetune "
+          f"{timer['training_total'] / wall:.3f}")
+
+
+def edit_gates(dev, st, teacher_ckpt, val, tag, gate=True):
+    """The edit took: on the 4 poses of `val`, the student against the
+    mapped teacher reads >= MIN_EDIT_PSNR; on the pixels the edit changes
+    (those where the mapped teacher's view differs from the unedited
+    teacher's by > 0.1; at least 100) the student is closer to the mapped
+    teacher than the unedited teacher is. gate=False prints the same
+    numbers and checks only that the student's PSNR is finite -> (student
+    PSNR, edited pixels)."""
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    plain_teacher = Trainer(ngp, st.fcfg, st.opts, st.cfg, dataset=val,
+                            device=dev, name="teacher_unedited")
+    plain_teacher.load_checkpoint(teacher_ckpt)
+    ps_student, ps_teacher = [], []
+    n_px, se_student, se_teacher = 0, 0.0, 0.0
+    for pose in val.poses[:4]:
+        target, _ = st.render_teacher_view(pose, val.h, val.w)
+        edited = st.render_image(pose, val.h, val.w)[0]
+        unedited = plain_teacher.render_image(pose, val.h, val.w)[0]
+        ps_student.append(psnr(edited, target))
+        ps_teacher.append(psnr(unedited, target))
+        mask = (target - unedited).abs().amax(-1) > 0.1
+        n_px += int(mask.sum())
+        se_student += float(((edited - target) ** 2)[mask].sum())
+        se_teacher += float(((unedited - target) ** 2)[mask].sum())
+    edit_student = edit_teacher = float("nan")   # no pixel changed
+    if n_px:
+        edit_student = -10.0 * np.log10(se_student / (3 * n_px))
+        edit_teacher = -10.0 * np.log10(se_teacher / (3 * n_px))
+    print(f"{tag} {len(ps_student)} val poses at {val.h}x{val.w} against "
+          f"the mapped teacher: student "
+          f"{np.mean(ps_student):.2f} dB {[round(v, 2) for v in ps_student]}, "
+          f"unedited teacher {np.mean(ps_teacher):.2f} dB "
+          f"{[round(v, 2) for v in ps_teacher]}; on the {n_px} pixels the "
+          f"edit changes: student {edit_student:.2f} dB, unedited teacher "
+          f"{edit_teacher:.2f} dB")
+    check(np.isfinite(np.mean(ps_student)), f"{tag} student PSNR "
+                                            f"{ps_student}")
+    if gate:
+        check(n_px >= 100, f"{tag} the edit changes only {n_px} pixels of "
+                           f"4 val views")
+        check(np.mean(ps_student) >= MIN_EDIT_PSNR,
+              f"{tag} student PSNR {np.mean(ps_student):.2f} < "
+              f"{MIN_EDIT_PSNR}")
+        check(edit_teacher < edit_student,
+              f"{tag} on the edited pixels the unedited teacher is as close "
+              f"to the target as the student: the edit did not take")
+    return float(np.mean(ps_student)), n_px
+
+
+# phase 20's edits of the procedural scene (data/synthetic.py): a 9x9 line
+# stroke on the box's top face (y = -0.27), a curve stroke on ball 1's cap
+# around its +y pole, an anchor pulled up from that pole. An anchor of
+# radius 0.08 pulled by 0.12 changes too few pixels of the 4 val views (its
+# spike is nearly the white of the background) for the edit gate's 100.
+BRUSH = {"normal": [0.0, 1.0, 0.0], "brushPressure": 0.05, "brushDepth": 1.0,
+         "attenuationDistance": 0.05, "attenuationMode": "linear"}
+BOX_TOP = dict(x=(-0.35, -0.05), z=(-0.40, -0.15), y=-0.27)
+B2_EDIT_EPOCHS, B2_EDIT_STEPS = 50, 300     # phase 20d's API edit
+B2_CLI_EPOCHS, B2_CLI_STEPS = 20, 100       # phase 20d's Seal CLI at bound 2
+MESH_RES = 256
+
+
+def seal_tool_configs():
+    """{name: seal.json dict} of phase 20's brush and anchor edits."""
+    gx, gz = np.meshgrid(np.linspace(*BOX_TOP["x"], 9),
+                         np.linspace(*BOX_TOP["z"], 9))
+    line = np.stack([gx, np.full_like(gx, BOX_TOP["y"]), gz], -1)
+    rng = np.random.default_rng(0)
+    theta = np.arccos(rng.uniform(np.cos(0.6), 1.0, 160))
+    phi = rng.uniform(0, 2 * np.pi, 160)
+    cap = np.array([0.35, 0.1, 0.0]) + 0.22 * np.stack(
+        [np.sin(theta) * np.cos(phi), np.cos(theta),
+         np.sin(theta) * np.sin(phi)], -1)
+    pole = cap[np.argsort(-cap[:, 1])[:8]]
+    return {
+        "brush_line": dict(type="brush", raw=line.reshape(-1, 3).tolist(),
+                           brushType="line", **BRUSH),
+        "brush_curve": dict(type="brush", raw=cap.tolist(),
+                            brushType="curve", **BRUSH),
+        "anchor": dict(type="anchor", raw=pole.tolist(),
+                       translation=[0.0, 0.25, 0.0], radius=0.12),
+    }
+
+
+def write_seal_config(ws, config) -> str:
+    """A directory under ws holding `config` as its seal.json."""
+    os.makedirs(ws, exist_ok=True)
+    with open(os.path.join(ws, "seal.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    return ws
+
+
+@contextlib.contextmanager
+def capture_k1_fwd():
+    """Record the arguments (cfg, table, x, valid) of K1's forward launches
+    while the block runs: yields a list that holds the last one."""
+    from seal3d_tpu_torch.ops import halo_encode as k1
+
+    seen, fwd = [], k1._launch_fwd
+
+    def rec_fwd(table, x, valid, cfg, *rest):
+        seen[:] = [dict(cfg=cfg, table=table.detach(), x=x, valid=valid)]
+        return fwd(table, x, valid, cfg, *rest)
+
+    k1._launch_fwd = rec_fwd
+    try:
+        yield seen
+    finally:
+        k1._launch_fwd = fwd
+
+
+def busiest_proxy_chunk(dev, st, tag):
+    """The proxy chunk of the most kept samples over the edit's training
+    views, rendered once more through the mapped teacher: its peak device
+    memory, and K1's forward on its mapped, packed positions against the
+    plain version (<= TOL). These launches count for no path. -> (max abs
+    error, peak MiB)."""
+    from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_plain
+    from seal3d_tpu_torch.render.renderer import render_rays
+
+    h, w = st.dataset.h, st.dataset.w
+    chunk = min(st.cfg.eval_chunk, h * w)
+    best = (-1, None, None)
+    for pose in st.dataset.poses:
+        ro, rd, _ = st._teacher_view_setup(pose, h, w, chunk)
+        for ci in range(ro.shape[0]):
+            need = int(st._teacher_demand(st.teacher_bitfield, ro[ci], rd[ci]))
+            if need > best[0]:
+                best = (need, ro[ci], rd[ci])
+    need, ro, rd = best
+    frac = st._covering_frac(float(need), chunk)
+    opts = dataclasses.replace(st._teacher_opts, flat_frac=frac)
+    bg = torch.ones((chunk, 3), device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with capture_k1_fwd() as seen:
+        out = render_rays(st.teacher_params, st.teacher_field, st.fcfg,
+                          st.teacher_bitfield, ro, rd, opts, bg_color=bg)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    check(bool(torch.isfinite(out["image"]).all()), f"{tag} busiest chunk")
+    check(len(seen) == 1, f"{tag} the busiest chunk launched no K1")
+    case = seen[0]
+    cfg, t, x, v = (case[k] for k in ("cfg", "table", "x", "valid"))
+    with torch.no_grad():
+        err = float((halo_encode(t, x, v, cfg)
+                     - halo_encode_plain(t, x, v, cfg)).abs().max())
+    n_valid = x.shape[0] if v is None else int(v.sum())
+    print(f"{tag} busiest proxy chunk ({chunk} rays, {need} kept samples, "
+          f"flat_frac {frac}): rendered in {sec:.4f} s (host clock, synced), "
+          f"peak device memory {peak:.1f} MiB above the {base / 2**20:.1f} "
+          f"MiB held; K1 fwd on its mapped samples (M={x.shape[0]}, "
+          f"{n_valid} valid) max_abs_err {err:.3e}")
+    check(err <= TOL, f"{tag} K1 fwd on the busiest proxy chunk: {err}")
+    return err, peak
+
+
+def seal_tools_phase(dev, ws, teacher_ckpt, wide_ckpt, b2_cli_ckpt):
+    """Phase 20, the Seal tools: (a)-(c) the brush (line, curve) and anchor
+    edits through main_SealNeRF at bound 1 on phase 7's teacher, each with
+    phase 14's recipe and gates; (d) a bbox edit at bound 2 through the
+    SealTrainer API on phase 18a's WideSyntheticScene state, moving its
+    cascade-1 satellite ball, then the Seal CLI at its default bound and
+    dt_gamma on phase 18d's checkpoint; (e) the --dense_render Seal CLI at
+    a tiny size; (f) extract_geometry at 256^3 on phase 7's state and on
+    edit (a)'s student. -> (K1 forward launches, backward launches, max
+    forward error)."""
+    from seal3d_tpu_torch import main_SealNeRF
+    from seal3d_tpu_torch.config import common_parser, load_dataset
+
+    configs = seal_tool_configs()
+    total_f = total_b = 0
+    err = 0.0
+    cli = common_parser("chip_smoke").parse_args(
+        O_ARGV + ["--H", "256", "--W", "256", "--workspace", ws])
+    val = load_dataset(cli, "val", device=dev)
+    students = {}
+    for name, config in configs.items():
+        tag = f"[tools {name}]"
+        run_ws = os.path.join(ws, name)
+        cfg_dir = write_seal_config(os.path.join(ws, f"{name}_config"),
+                                    config)
+        argv = O_ARGV + ["--H", "256", "--W", "256", "--seal_config",
+                         cfg_dir, "--teacher_ckpt", teacher_ckpt,
+                         "--pretraining_epochs",
+                         str(SEAL_EPOCHS), "--extra_epochs",
+                         str(SEAL_STEPS), "--workspace", run_ws]
+        t0 = time.perf_counter()
+        st, fwd, bwd = k1_counted(lambda: main_SealNeRF.main(argv))
+        sec = time.perf_counter() - t0
+        check(st.mapper.kind == config["type"], f"{tag} mapper {st.mapper.kind}")
+        timer = edit_outputs(st, run_ws, SEAL_EPOCHS,
+                             f"{tag} main_SealNeRF at 256x256: {sec:.2f} s in "
+                             f"all;")
+        edit_launch_check(st, SEAL_EPOCHS,
+                          SEAL_STEPS, fwd, bwd, tag)
+        check(len(st.render_stats) == 8
+              and all(s_["nonfinite"] == 0 for s_ in st.render_stats),
+              f"{tag} edited test views: count or non-finite pixels")
+        print_edit_timer(st, timer, SEAL_STEPS, tag)
+        total_f, total_b = total_f + fwd, total_b + bwd
+        e, _ = busiest_proxy_chunk(dev, st, tag)
+        err = max(err, e)
+        edit_gates(dev, st, teacher_ckpt, val, tag)
+        students[name] = st
+
+    f, b, e = bound2_edit_phase(dev, ws, wide_ckpt, b2_cli_ckpt,
+                                configs["brush_line"])
+    total_f, total_b, err = total_f + f, total_b + b, max(err, e)
+    f, b = dense_edit_phase(ws, configs["brush_line"])
+    total_f, total_b = total_f + f, total_b + b
+    total_f += mesh_phase(dev, ws, teacher_ckpt, students["brush_line"])
+    return total_f, total_b, err
+
+
+def bound2_edit_phase(dev, ws, wide_ckpt, b2_cli_ckpt, brush):
+    """Phase 20d: the bbox edit of WideSyntheticScene's satellite ball at
+    (1.45, 0.1, 0.2) (on cascade 1), moved up by 0.3, through the
+    SealTrainer API at phase 18a's recipe; its force-filled cells on
+    cascade 1 set in the student's bitfield while it trains, >= 90% of the
+    moved ball's core cells occupied after restore_grid (the field's
+    interior is free where no view or shell pins it), phase 14's gates on
+    4 held-out
+    views. Then main_SealNeRF at the CLI's default bound and dt_gamma with
+    `brush` on phase 18d's checkpoint: a finite student PSNR. -> (K1
+    forward launches, backward launches, max forward error)."""
+    from seal3d_tpu_torch import main_SealNeRF
+    from seal3d_tpu_torch.config import common_parser, load_dataset
+    from seal3d_tpu_torch.data.synthetic import WideSyntheticScene
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.ops.bitfield import GRID_CELLS
+    from seal3d_tpu_torch.seal.mappers import build_mapper
+    from seal3d_tpu_torch.seal.renderer import force_fill_cells
+    from seal3d_tpu_torch.seal.trainer import PretrainConfig, SealTrainer
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    tag = "[tools bound2]"
+    scene = WideSyntheticScene()
+    ds = scene.make_dataset(n_views=12, h=192, w=192, seed=0, device=dev)
+    val = scene.make_dataset(n_views=4, h=192, w=192, seed=1, device=dev)
+    fcfg, opts, tcfg = wide_bound2_recipe()
+    teacher = Trainer(ngp, fcfg, opts, tcfg, dataset=ds, device=dev)
+    teacher.load_checkpoint(wide_ckpt)
+    g = np.linspace(-0.3, 0.3, 3)
+    raw = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3) \
+        + [1.45, 0.1, 0.2]
+    move = np.eye(4)
+    move[1, 3] = 0.3
+    run_ws = os.path.join(ws, "bound2_edit")
+    mapper = build_mapper({"type": "bbox", "raw": raw.tolist(),
+                           "transform": move.tolist(),
+                           "scale": [1.0, 1.0, 1.0]}, workspace=run_ws)
+    st = SealTrainer(ngp, fcfg, opts,
+                     dataclasses.replace(tcfg, workspace=run_ws), mapper,
+                     teacher_params=teacher.state.params,
+                     teacher_bitfield=teacher.state.occ.bitfield, dataset=ds,
+                     seed=3, device=dev)
+    st.init_state()
+    # the student's bitfield as it trains (the hacked one) is read just
+    # before restore_grid drops the force-fill
+    hacked, restore = {}, st.restore_grid
+
+    def read_then_restore():
+        hacked["bits"] = st.state.occ.bitfield.clone()
+        restore()
+
+    st.restore_grid = read_then_restore
+    pcfg = PretrainConfig(epochs=B2_EDIT_EPOCHS, lr=0.05)
+    t0 = time.perf_counter()
+    timer, fwd, bwd = k1_counted(
+        lambda: st.train_edit(pcfg, finetune_steps=B2_EDIT_STEPS, log=False))
+    sec = time.perf_counter() - t0
+    edit_outputs(st, run_ws, B2_EDIT_EPOCHS,
+                 f"{tag} SealTrainer.train_edit at 192x192, bound 2 "
+                 f"({opts.cascades} cascades): {sec:.2f} s in all;")
+    edit_launch_check(st, B2_EDIT_EPOCHS, B2_EDIT_STEPS, fwd, bwd, tag)
+    print_edit_timer(st, timer, B2_EDIT_STEPS, tag)
+
+    cells = force_fill_cells(mapper.force_fill_bound, 2, 2.0)
+    c1 = cells[cells >= GRID_CELLS]
+    core = force_fill_cells(np.array([[[1.37, 0.32, 0.12],
+                                       [1.53, 0.48, 0.28]]]), 2, 2.0)
+    core = core[core >= GRID_CELLS]
+
+    def held(bits, ids):
+        b = bits.cpu().numpy()
+        return int(((b[ids >> 3] >> (ids & 7)) & 1).sum())
+
+    print(f"{tag} cascade-1 force-filled cells set in the student's "
+          f"bitfield while it trained: {held(hacked['bits'], c1)} of "
+          f"{len(c1)}; the moved ball's core after restore_grid: "
+          f"{held(st.state.occ.bitfield, core)} of {len(core)} cells")
+    check(len(c1) > 0 and held(hacked["bits"], c1) == len(c1),
+          f"{tag} the force-fill on cascade 1 is not in the bitfield")
+    check(len(core) > 0 and held(st.state.occ.bitfield, core)
+          >= 0.9 * len(core),
+          f"{tag} the moved ball's core is not occupied after restore_grid")
+    e, _ = busiest_proxy_chunk(dev, st, tag)
+    edit_gates(dev, st, wide_ckpt, val, tag)
+    total_f, total_b = fwd, bwd
+    del st, teacher
+    torch.cuda.empty_cache()
+
+    tag = "[tools bound2 cli]"
+    run_ws = os.path.join(ws, "bound2_cli_edit")
+    argv = ["synthetic", "-O", "--lr", "3e-3", "--H", "128", "--W", "128",
+            "--device", "cuda", "--seal_config",
+            write_seal_config(os.path.join(ws, "bound2_cli_config"), brush),
+            "--teacher_ckpt", b2_cli_ckpt, "--pretraining_epochs",
+            str(B2_CLI_EPOCHS), "--extra_epochs", str(B2_CLI_STEPS),
+            "--workspace", run_ws]
+    t0 = time.perf_counter()
+    cli_st, fwd, bwd = k1_counted(lambda: main_SealNeRF.main(argv))
+    sec = time.perf_counter() - t0
+    check(cli_st.opts.bound == 2.0 and cli_st.opts.dt_gamma == 1 / 128
+          and cli_st.opts.cascades == 2, f"{tag} the CLI's defaults moved")
+    timer = edit_outputs(cli_st, run_ws, B2_CLI_EPOCHS,
+                         f"{tag} main_SealNeRF -O --lr 3e-3 at 128x128, "
+                         f"bound {cli_st.opts.bound}, dt_gamma "
+                         f"{cli_st.opts.dt_gamma}: {sec:.2f} s in all;")
+    edit_launch_check(cli_st, B2_CLI_EPOCHS, B2_CLI_STEPS, fwd, bwd, tag)
+    print_edit_timer(cli_st, timer, B2_CLI_STEPS, tag)
+    args = common_parser("chip_smoke").parse_args(
+        ["synthetic", "--H", "128", "--W", "128", "--workspace", run_ws])
+    edit_gates(dev, cli_st, b2_cli_ckpt, load_dataset(args, "val", device=dev),
+               tag, gate=False)
+    return total_f + fwd, total_b + bwd, e
+
+
+def dense_edit_phase(ws, brush):
+    """Phase 20e: main_SealNeRF with --dense_render at the CPU test's tiny
+    size (24x24, T=2^12), the teacher trained 48 steps through the dense
+    oracle in the same call: it exits and writes both checkpoints. -> (K1
+    forward launches, backward launches)."""
+    from seal3d_tpu_torch import main_SealNeRF
+
+    tag = "[tools dense]"
+    run_ws, tws = os.path.join(ws, "dense_edit"), os.path.join(ws, "dense_t")
+    argv = ["synthetic", "-O", "--bound", "1.0", "--dt_gamma", "0",
+            "--min_near", "0.05", "--max_steps", "512", "--H", "24", "--W",
+            "24", "--num_rays", "256", "--log2_hashmap_size", "12",
+            "--device", "cuda", "--dense_render", "--seal_config",
+            write_seal_config(os.path.join(ws, "dense_config"), brush),
+            "--teacher_ckpt", "scratch", "--train_teacher", "48",
+            "--teacher_workspace", tws, "--pretraining_epochs", "6",
+            "--pretraining_batch_size", "8192",
+            "--pretraining_local_point_step", "0.04",
+            "--pretraining_surrounding_point_step", "0.08",
+            "--pretraining_global_point_step", "0.2", "--extra_epochs", "32",
+            "--workspace", run_ws]
+    t0 = time.perf_counter()
+    st, fwd, bwd = k1_counted(lambda: main_SealNeRF.main(argv))
+    sec = time.perf_counter() - t0
+    written = [os.path.exists(os.path.join(d, "checkpoints", f))
+               for d, f in ((tws, "sealnerf_teacher_step0000048.npz"),
+                            (run_ws, "sealnerf_student_step0000032.npz"))]
+    print(f"{tag} main_SealNeRF --dense_render at 24x24 (teacher 48 dense "
+          f"steps, student 6 epochs + 32 steps): {sec:.2f} s; checkpoints "
+          f"written {written}; K1 launches forward {fwd}, backward {bwd}")
+    check(all(written) and not st.use_dense, f"{tag} checkpoints {written}")
+    check(fwd > 0 and bwd > 0, f"{tag} K1 launches {fwd} / {bwd}")
+    return fwd, bwd
+
+
+def mesh_phase(dev, ws, teacher_ckpt, student):
+    """Phase 20f: extract_geometry at MESH_RES^3 (2^16-point chunks) as
+    main_nerf --save_mesh runs it on phase 7's state (its EMA params) and as
+    main_SealNeRF runs it on edit (a)'s student (its params), at the CLIs'
+    threshold min(10, mean density): K1 launched once per chunk, every
+    vertex inside the bound, and the box's top face inside the stroke's
+    interior (the median height of the vertices there below y = 0, above
+    which the torus passes) lifted in the edited mesh by at least half the
+    brush's pressure. The iso level (~1) lies ~0.07 outside the scene's
+    soft box (density 60 sigmoid(-60 d)), so both faces sit above y = -0.27.
+    -> K1 forward launches."""
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.runtime.mesh_export import (extract_geometry,
+                                                      save_mesh)
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    teacher = Trainer(ngp, student.fcfg, student.opts, student.cfg,
+                      device=dev, name="mesh_teacher")
+    teacher.load_checkpoint(teacher_ckpt)
+    chunks = MESH_RES**3 // 2**16
+    total, face = 0, {}
+    for name, params, occ in (
+            ("teacher", teacher.state.ema_params, teacher.state.occ),
+            ("brush_line", student.state.params, student.state.occ)):
+        thr = min(10.0, float(occ.mean_density))
+        t0 = time.perf_counter()
+        (verts, tris), fwd, _ = k1_counted(lambda: extract_geometry(
+            lambda x: ngp.density(params, student.fcfg, x)["sigma"],
+            bound=1.0, resolution=MESH_RES, threshold=thr, device=dev))
+        sec = time.perf_counter() - t0
+        save_mesh(os.path.join(ws, "meshes", f"{name}.ply"), verts, tris)
+        x, y, z = verts[:, 0], verts[:, 1], verts[:, 2]
+        top = ((x > BOX_TOP["x"][0] + 0.05) & (x < BOX_TOP["x"][1] - 0.05)
+               & (z > BOX_TOP["z"][0] + 0.05) & (z < BOX_TOP["z"][1] - 0.05)
+               & (y > -0.45) & (y < 0.0))
+        face[name] = float(np.median(y[top])) if top.any() else float("nan")
+        print(f"[tools mesh] {name}: {MESH_RES}^3 lattice at threshold "
+              f"{thr:.4f}: {len(verts)} vertices, {len(tris)} triangles in "
+              f"{sec:.2f} s (host clock: {chunks} density chunks on the card "
+              f"and the C++ marching tetrahedra); K1 launches {fwd}; the "
+              f"box's top face inside the stroke: {int(top.sum())} vertices "
+              f"at median y {face[name]:.4f}")
+        check(fwd == chunks, f"mesh {name}: K1 launches {fwd} != {chunks}")
+        check(len(verts) > 1000 and len(tris) > 1000,
+              f"mesh {name}: {len(verts)} vertices")
+        check(bool((np.abs(verts) <= 1.0 + 1e-6).all()),
+              f"mesh {name}: a vertex lies outside the bound")
+        total += fwd
+    lift = face["brush_line"] - face["teacher"]
+    print(f"[tools mesh] the stroke lifted the face by {lift:.4f} (the "
+          f"brush's pressure {BRUSH['brushPressure']})")
+    check(lift >= 0.5 * BRUSH["brushPressure"],
+          f"the brush did not lift the mesh's face: {face}")
+    return total
 
 
 @contextlib.contextmanager
@@ -2195,14 +2638,12 @@ def bound2_phase(dev, ws):
     update; (d) the CLI at its default bound and dt_gamma.
     The PSNR gate is taken at B2_GATE_STEPS, after the recipe's timed
     steps.
-    -> (K1 forward launches, backward launches, max forward error)."""
+    -> (K1 forward launches, backward launches, max forward error, a
+    checkpoint of (a)'s state at B2_GATE_STEPS, (d)'s step checkpoint)."""
     from seal3d_tpu_torch import main_nerf
     from seal3d_tpu_torch.data.synthetic import WideSyntheticScene
     from seal3d_tpu_torch.models import ngp
-    from seal3d_tpu_torch.models.ngp import NGPConfig
-    from seal3d_tpu_torch.render.renderer import RenderOptions
-    from seal3d_tpu_torch.train.trainer import (TIMING_WARMUP, TrainConfig,
-                                                Trainer)
+    from seal3d_tpu_torch.train.trainer import TIMING_WARMUP, Trainer
 
     # --- (a) bench.py:148-176's recipe
     scene = WideSyntheticScene()
@@ -2212,15 +2653,7 @@ def bound2_phase(dev, ws):
     torch.cuda.synchronize()
     print(f"[bound2] WideSyntheticScene: 12 train + 1 val views at 192x192: "
           f"{time.perf_counter() - t0:.2f} s")
-    fcfg = NGPConfig(bound=2.0, log2_hashmap_size=15, grid_backend="halo",
-                     gridtype="wrap")
-    opts = RenderOptions(bound=2.0, dt_gamma=1.0 / 128, max_steps=512,
-                         budget_per_ray=48, num_candidates=256,
-                         min_near=0.05, coarse_steps=64)
-    tcfg = TrainConfig(lr=3e-3, max_steps=30000, num_rays=4096,
-                       eval_chunk=2**15, eval_budget_per_ray=64,
-                       eval_flat_frac=0.5, random_bg=False,
-                       adaptive_budget=True)
+    fcfg, opts, tcfg = wide_bound2_recipe()
     steps = TIMING_WARMUP + B2_STEPS
     tr = Trainer(ngp, fcfg, opts, tcfg, dataset=ds, seed=2, device=dev)
     check(opts.cascades == 2, f"bound 2 has {opts.cascades} cascades")
@@ -2271,6 +2704,8 @@ def bound2_phase(dev, ws):
           f"bound 2: K1 fwd launches {fwd} != field calls {field_calls}")
     check(bwd == B2_GATE_STEPS,
           f"bound 2: K1 bwd launches {bwd} != steps {B2_GATE_STEPS}")
+    wide_ckpt = tr.save_checkpoint(os.path.join(
+        ws, "bound2_wide", f"wide_step{B2_GATE_STEPS:07d}.npz"))
     with capture_k1() as seen:
         tr.train_step()
     err = k1_case_vs_plain(dict(seen[-1], name="one bound-2 train step's "
@@ -2395,7 +2830,31 @@ def bound2_phase(dev, ws):
     check(fwd == field_calls and bwd == 256,
           f"bound-2 CLI: K1 launches {fwd} / {bwd}, field calls "
           f"{field_calls}, steps 256")
-    return total_f + fwd, total_b + bwd, err
+    cli_ckpt = os.path.join(ws, "bound2_cli", "checkpoints",
+                            "ngp_step0000256.npz")
+    check(os.path.exists(cli_ckpt), f"{cli_ckpt} not written")
+    return total_f + fwd, total_b + bwd, err, wide_ckpt, cli_ckpt
+
+
+def wide_bound2_recipe():
+    """bench.py:148-176's wide_bound2 recipe -> (NGPConfig, RenderOptions,
+    TrainConfig): halo at T=2^15 `wrap`, dt_gamma 1/128, max_steps 512,
+    budget 48, 256 candidates, coarse 64, lr 3e-3, 4096 rays, eval chunk
+    2^15 at budget 64 and flat_frac 0.5, adaptive budget."""
+    from seal3d_tpu_torch.models.ngp import NGPConfig
+    from seal3d_tpu_torch.render.renderer import RenderOptions
+    from seal3d_tpu_torch.train.trainer import TrainConfig
+
+    fcfg = NGPConfig(bound=2.0, log2_hashmap_size=15, grid_backend="halo",
+                     gridtype="wrap")
+    opts = RenderOptions(bound=2.0, dt_gamma=1.0 / 128, max_steps=512,
+                         budget_per_ray=48, num_candidates=256,
+                         min_near=0.05, coarse_steps=64)
+    tcfg = TrainConfig(lr=3e-3, max_steps=30000, num_rays=4096,
+                       eval_chunk=2**15, eval_budget_per_ray=64,
+                       eval_flat_frac=0.5, random_bg=False,
+                       adaptive_budget=True)
+    return fcfg, opts, tcfg
 
 
 def parity_phase(dev, tr7, ds, ws):

@@ -71,25 +71,22 @@ def common_parser(desc: str) -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args, cli: str = "nerf"):
+def refuse_unported(args):
     """Raise NotImplementedError, naming the ROADMAP.md item, for the CLI
-    options whose code is not ported yet; raise RuntimeError where the run
-    asks for the card (the default) and there is none. cli: 'nerf'
-    (main_nerf) or 'seal' (main_SealNeRF, whose edit is not ported at bound
-    > 1 nor through the dense renderer)."""
+    options whose code is not ported yet (--gui; --error_map, --clip_text
+    and --rand_pose), in main_nerf and main_SealNeRF alike; raise
+    RuntimeError where the run asks for the card (the default) and there is
+    none."""
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         raise RuntimeError("no CUDA device (pass --device cpu to run the "
                            "plain PyTorch versions on the CPU)")
     item = None
-    if args.gui or args.save_mesh:
-        item = ("--gui and --save_mesh", "Other backends and families")
+    if args.gui:
+        item = ("--gui", "Other backends and families")
     elif (args.error_map or getattr(args, "clip_text", "")
           or getattr(args, "rand_pose", -1) >= 0):
         item = ("--error_map, --clip_text and --rand_pose", "Train step")
-    elif cli == "seal" and (args.dense_render or args.bound > 1):
-        item = ("Seal editing at bound > 1 or through --dense_render",
-                "Seal editing: what stays")
     if item:
         raise NotImplementedError(f"{item[0]}: not ported yet (ROADMAP.md "
                                   f"Queue 1, '{item[1]}')")

@@ -1,7 +1,7 @@
 """Seal-3D editing CLI over the port, NGP backbone (counterpart of
 main_SealNeRF.py): load or train a teacher, build the proxy mapper from a
-seal config, distill the edit into a student with the two-stage schedule,
-render the edited test views.
+seal config (the bbox, brush or anchor tool), distill the edit into a
+student with the two-stage schedule, render the edited test views.
 
     python -m seal3d_tpu_torch.main_SealNeRF synthetic -O --bound 1.0 \\
         --dt_gamma 0 --min_near 0.05 --max_steps 512 \\
@@ -10,10 +10,14 @@ render the edited test views.
 
 writes `<ws>/timer.json`, `seal.json`, `options.json`, `run.sh`, the
 student's checkpoint and `<ws>/results/` (PNGs, plus mp4s where imageio or
-cv2 is installed). `--train_teacher N` trains the teacher first instead of
-loading one. The bbox tool is ported; a brush or anchor config, `--gui`,
-`--save_mesh`, `--dense_render`, `--error_map` and bound > 1 raise
-NotImplementedError naming their ROADMAP.md item.
+cv2 is installed); with `--save_mesh` also `<ws>/meshes/sealnerf.ply`, the
+student's iso-surface. `--train_teacher N` trains the teacher first instead
+of loading one. The CLI's defaults `--bound 2.0 --dt_gamma 1/128` edit a
+two-cascade field (train it at `--lr 3e-3`, as main_nerf); with
+`--dense_render` the teacher trains and renders through the dense oracle
+while the student keeps the occupancy-grid path, as in the reference.
+`--gui` raises NotImplementedError naming its ROADMAP.md item, as do
+`--error_map`, `--clip_text` and `--rand_pose`.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from seal3d_tpu_torch.config import (build_options, build_train_config,
                                      load_dataset, refuse_unported)
 from seal3d_tpu_torch.models import ngp
 from seal3d_tpu_torch.models.ngp import NGPConfig
+from seal3d_tpu_torch.runtime.mesh_export import extract_geometry, save_mesh
 from seal3d_tpu_torch.seal.mappers import build_mapper, load_mapper_config
 from seal3d_tpu_torch.seal.provider import seal_random_dataset
 from seal3d_tpu_torch.seal.trainer import PretrainConfig, SealTrainer
@@ -64,7 +69,7 @@ def add_seal_args(parser):
 def run_seal(args, field_mod, fcfg, make_trainer, name) -> SealTrainer:
     opts = build_options(args)
     tcfg = build_train_config(args)
-    # the edit first: a config of an unported tool fails before any training
+    # the edit first: a config of an unknown tool fails before any training
     mapper = build_mapper(load_mapper_config(args.seal_config),
                           workspace=tcfg.workspace)
     ds = load_dataset(args, "trainval", device=args.device)
@@ -142,6 +147,16 @@ def run_seal(args, field_mod, fcfg, make_trainer, name) -> SealTrainer:
     written = write_test_outputs(render_view, len(test_ds), out_dir, name)
     print(f"[test] wrote {len(test_ds)} edited views to {out_dir} "
           f"(video: {written['video']})")
+
+    if args.save_mesh:
+        verts, tris = extract_geometry(
+            lambda x: field_mod.density(student.state.params, fcfg, x)["sigma"],
+            bound=args.bound, resolution=args.mesh_resolution,
+            threshold=min(10.0, float(student.state.occ.mean_density)),
+            device=args.device)
+        save_mesh(os.path.join(tcfg.workspace, "meshes", f"{name}.ply"),
+                  verts, tris)
+        print(f"[mesh] {len(verts)} verts, {len(tris)} tris")
     return student
 
 
@@ -149,7 +164,7 @@ def main(argv=None) -> SealTrainer:
     parser = add_seal_args(common_parser("seal3d-tpu Seal editing (NGP, "
                                          "PyTorch port)"))
     args = parser.parse_args(argv)
-    refuse_unported(args, cli="seal")
+    refuse_unported(args)
     backend, log2t, gridtype = grid_defaults(args)
     fcfg = NGPConfig(bound=args.bound, log2_hashmap_size=log2t,
                      grid_backend=backend, gridtype=gridtype,
@@ -157,7 +172,8 @@ def main(argv=None) -> SealTrainer:
 
     def make_trainer(tcfg, ds, name):
         return Trainer(ngp, fcfg, build_options(args), tcfg, dataset=ds,
-                       seed=args.seed, device=args.device, name=name)
+                       seed=args.seed, device=args.device, name=name,
+                       use_dense=args.dense_render)
 
     return run_seal(args, ngp, fcfg, make_trainer, "sealnerf")
 

@@ -18,9 +18,12 @@ Queue 3). `--grid_backend bucket` (the reference's T=2^19 hash grid) and
 kernels. The defaults `--bound 2.0 --dt_gamma 1/128` train the two-cascade
 field with the cone-stepped single-level march (the reference trains bound
 2 at `--lr 3e-3`: lr 1e-2 collapses the field there); `--dense_render`
-trains and renders through the dense oracle, with no occupancy grid. The
-GUI, mesh export, error-map sampling and CLIP-guided random poses are not
-ported yet (ROADMAP.md Queue 1) and raise NotImplementedError.
+trains and renders through the dense oracle, with no occupancy grid.
+`--save_mesh` writes `<ws>/meshes/ngp.ply`: the EMA field's density on a
+`--mesh_resolution`^3 lattice, its iso-surface at min(10, the occupancy
+grid's mean density). The GUI, error-map sampling and CLIP-guided random
+poses are not ported yet (ROADMAP.md Queue 1) and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from seal3d_tpu_torch.config import (build_options, build_train_config,
                                      load_dataset, refuse_unported)
 from seal3d_tpu_torch.models import ngp
 from seal3d_tpu_torch.models.ngp import NGPConfig
+from seal3d_tpu_torch.runtime.mesh_export import extract_geometry, save_mesh
 from seal3d_tpu_torch.train import checkpoint as ckpt_io
 from seal3d_tpu_torch.train.trainer import Trainer
 from seal3d_tpu_torch.train.video import write_test_outputs
@@ -88,6 +92,16 @@ def main(argv=None) -> Trainer:
     written = write_test_outputs(render_view, len(test_ds), out_dir, "ngp")
     print(f"[test] wrote {len(test_ds)} views to {out_dir} "
           f"(video: {written['video']})")
+
+    if args.save_mesh:
+        verts, tris = extract_geometry(
+            lambda x: ngp.density(tr.state.ema_params, fcfg, x)["sigma"],
+            bound=args.bound, resolution=args.mesh_resolution,
+            threshold=min(10.0, float(tr.state.occ.mean_density)),
+            device=args.device)
+        save_mesh(os.path.join(tcfg.workspace, "meshes", "ngp.ply"), verts,
+                  tris)
+        print(f"[mesh] {len(verts)} verts, {len(tris)} tris")
     return tr
 
 

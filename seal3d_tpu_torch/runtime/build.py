@@ -8,6 +8,11 @@ of the sources, the headers they include (`*.cuh`) and the flags, so an
 edited source or header never loads a stale library. Wrappers pass tensor
 pointers and the current stream as `c_void_p`; each C entry point returns
 `cudaGetLastError()` after its launch.
+
+Host libraries (`csrc/*.cpp`, the mesh extractor) take the `g++` path:
+`load_host_library(name)` compiles `csrc/<name>.cpp` into
+`_build/lib<name>_<digest>.so` at first use, named by a digest of the source
+and the flags in the same way.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import NamedTuple, Optional, Sequence
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -94,3 +100,36 @@ def build_library(sources: Optional[Sequence[str]] = None) -> BuildResult:
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first call in this process."""
     return ctypes.CDLL(build_library().path)
+
+
+def build_host_library(name: str) -> BuildResult:
+    """Compile csrc/<name>.cpp with g++ into _build/ unless an identical
+    build exists."""
+    src = os.path.join(CSRC_DIR, f"{name}.cpp")
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    with open(src, "rb") as f:
+        digest.update(f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return BuildResult(out, 0.0, "")
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found: csrc/{name}.cpp cannot be built")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([cxx, *CXX_FLAGS, src, "-o", lib],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {name}.cpp ({proc.returncode}):"
+                               f"\n{proc.stderr}")
+        os.replace(lib, out)
+    return BuildResult(out, time.perf_counter() - t0, proc.stderr)
+
+
+@functools.cache
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The host library of csrc/<name>.cpp, built on first call in this
+    process."""
+    return ctypes.CDLL(build_host_library(name).path)

@@ -1,9 +1,8 @@
 """Geometry utilities for the editing layer (port of
 seal3d_tpu/seal/geometry.py): self-contained numpy at config-build time
-(PCA oriented bounding boxes, plane fit, OBJ / PLY export; copied from the
-reference, which needs no JAX for them; its voxel clustering and kNN
-normals serve the brush tools, which are not ported yet)
-and tensor code at render time (Moller-Trumbore ray/triangle test,
+(PCA oriented bounding boxes, plane fit, the brush's voxel clustering and
+kNN normals, OBJ / PLY export; copied from the reference, which needs no
+JAX for them) and tensor code at render time (Moller-Trumbore ray/triangle test,
 point-in-mesh, plane projection, point-to-triangle distance).
 """
 
@@ -76,6 +75,53 @@ def box_mesh_from_aabb(bound: np.ndarray):
     signs = np.array([[(i >> d) & 1 for d in range(3)] for i in range(8)])
     verts = np.where(signs == 1, hi[None], lo[None]).astype(np.float32)
     return verts, _BOX_FACES.copy()
+
+
+def voxel_cluster_indices(points: np.ndarray,
+                          simplify_voxel: int = 16) -> np.ndarray:
+    """Indices of one representative point per occupied voxel; the voxel
+    grid spans the cloud's AABB at `simplify_voxel` cells along its longest
+    axis."""
+    pts = np.asarray(points, np.float64)
+    lo, hi = pts.min(0), pts.max(0)
+    voxel = max(float((hi - lo).max()), 1e-6) / simplify_voxel
+    keys = np.floor((pts - lo) / voxel).astype(np.int64)
+    _, idx = np.unique(keys, axis=0, return_index=True)
+    return np.sort(idx)
+
+
+def voxel_cluster_surface(points: np.ndarray, normal: np.ndarray,
+                          growth=(-0.3, 1.0), simplify_voxel: int = 16):
+    """The voxel-clustered representatives of a painted patch and the two
+    sheets offset from them along `normal` by `growth` -> (reps [R, 3],
+    sheet vertices [2R, 3]) f32. The sheets serve only the debug export;
+    containment is evaluated parametrically (mappers._brush_contains)."""
+    pts = np.asarray(points, np.float64)
+    idx = voxel_cluster_indices(pts, simplify_voxel)
+    reps = pts[idx]
+    n = np.asarray(normal, np.float64)
+    verts = np.concatenate([reps + n * growth[0], reps + n * growth[1]])
+    return reps.astype(np.float32), verts.astype(np.float32)
+
+
+def knn_point_normals(points: np.ndarray, k: int = 12,
+                      orient: np.ndarray = None) -> np.ndarray:
+    """Per-point normals [N, 3] f32 from the plane fit of each point's k
+    nearest neighbours (itself included), flipped into the hemisphere of
+    `orient` where given. O(N^2) over the stroke; neighbour ties break by
+    numpy's argsort, as in the reference."""
+    pts = np.asarray(points, np.float64)
+    n = len(pts)
+    k = min(k, n)
+    d2 = ((pts[:, None] - pts[None]) ** 2).sum(-1)
+    nbr = np.argsort(d2, axis=1)[:, :k]
+    normals = np.empty((n, 3), np.float32)
+    for i in range(n):
+        normals[i], _ = plane_fit(pts[nbr[i]])
+    if orient is not None:
+        flip = normals @ np.asarray(orient, np.float64) < 0
+        normals[flip] *= -1
+    return normals
 
 
 def export_obj(path: str, verts: np.ndarray, faces: np.ndarray = None):

@@ -113,13 +113,12 @@ def test_cli_trains_bucket_backend(tmp_path, monkeypatch):
                                        "ngp_step0000064.npz"))
 
 
-def test_unported_options_raise():
-    for extra in (["--error_map"], ["--gui"], ["--save_mesh"],
-                  ["--rand_pose", "0"]):
+def test_unported_options_raise(tmp_path, monkeypatch, capsys):
+    for extra in (["--error_map"], ["--gui"], ["--rand_pose", "0"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main_nerf.main(ARGV + extra)
-    # bound > 1 (the CLI's default) and --dense_render are ported: main_nerf
-    # takes them, the Seal CLI still refuses them
+    # bound > 1 (the CLI's default) and --dense_render are ported: both
+    # CLIs (one refusal list) take them
     for extra in (["--dense_render"], []):
         argv = ARGV + extra
         if not extra:
@@ -127,8 +126,24 @@ def test_unported_options_raise():
         args = common_parser("test").parse_args(argv)
         assert args.bound == (1.0 if extra else 2.0)
         refuse_unported(args)
-        with pytest.raises(NotImplementedError, match="Seal editing"):
-            refuse_unported(args, cli="seal")
+    # --save_mesh runs: a saved state re-rendered with --test writes the
+    # iso-surface of its EMA density at --mesh_resolution
+    monkeypatch.setattr(main_nerf, "NGPConfig",
+                        functools.partial(tngp.NGPConfig, num_levels=4))
+    tr = TTrainer(tngp, tngp.NGPConfig(**SMALL), TOpts(bound=1.0),
+                  TCfg(max_steps=100), device="cpu")
+    tr.init_state()
+    path = tr.save_checkpoint(str(tmp_path / "ngp_step0000000.npz"))
+    ws = str(tmp_path / "ws")
+    out = main_nerf.main(ARGV + ["--test", "--ckpt", path, "--save_mesh",
+                                 "--mesh_resolution", "20", "--workspace",
+                                 ws])
+    printed = capsys.readouterr().out
+    assert out.fcfg.bound == 1.0 and "[mesh]" in printed
+    with open(os.path.join(ws, "meshes", "ngp.ply")) as f:
+        lines = f.read().splitlines()
+    assert lines[:3] == ["ply", "format ascii 1.0", lines[2]]
+    assert lines[2].startswith("element vertex ")
 
 
 def _jax_state_with_moments(seed=0):
