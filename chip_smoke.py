@@ -200,6 +200,28 @@ Phases, each of which raises (exit code != 0) when it fails:
    and on (a)'s student: K1 launched once per 2^16-point chunk, vertices
    inside the bound, the lifted stroke in the edited mesh alone. K1's
    launch counts equal the field calls of every edit.
+21. TensoRF and Seal on it (it runs after phase 20; no kernel of the
+   table lies on this path, and none is launched): (a) `python -m
+   seal3d_tpu_torch.main_tensoRF synthetic -O --bound 1.0 --dt_gamma 0
+   --min_near 0.05 --max_steps 512 --iters 1500 --H 256 --W 256
+   --upsample_model_steps 300 500 700 900 1100` (VM at the CLI's full
+   width, 128^3 -> 300^3 over five upsamples, the shrink at step 1000): ms
+   per step by segment from CUDA events, with the factor shapes after each
+   milestone and the shrunk aabb; launches and device-busy ms of a step at
+   300^3 and the device ms of its plane / line lookups (the
+   `tensorf.sample` ranges forward; the scatters of their gathers,
+   `IndexSelectBackward0`, backward) and their share of the step; val PSNR
+   on 4 views at 256x256 (>= 20 dB); the final shapes equal
+   n_to_reso(300^3, shrunk aabb); s per 800x800 view on 2 test views and
+   the peak MiB above what is held while one renders; a fresh
+   TensoRFTrainer reloads the final .npz and renders a view bit-identical;
+   (b) the same CLI with `--cp` at 128x128, 300 steps, one upsample at
+   step 150: val PSNR >= 2 dB above the untrained field's, and a `.pth`
+   round trip whose `apply` is bit-identical; (c) `python -m
+   seal3d_tpu_torch.main_SealTensoRF` with seal_config_bbox on (a)'s
+   `.npz` at phase 14's recipe (50 epochs, 500 steps, 256x256): the stages
+   of timer.json, the student against the mapped teacher on 4 val views
+   (>= 25 dB), the pixels the edit changes (> 0), the student's aabb drift.
 The line before the last is the kernel table as JSON (eight kernels, each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
@@ -489,6 +511,9 @@ def main(argv=None):
         k1_bwd["launches"] += bwd
         k1_fwd["max_abs_err"] = max(k1_fwd["max_abs_err"], err)
         lap("20")
+        torch.cuda.empty_cache()
+        tensorf_phase(dev, os.path.join(ws, "tensorf"))
+        lap("21")
     print(f"[time] wall seconds by phase: {json.dumps(seconds)}")
     kernels = [k1_fwd, k1_bwd, k1_tp, *hash_rows, k4, *k5_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1539,20 +1564,23 @@ def print_edit_timer(st, timer, steps, tag):
           f"{timer['training_total'] / wall:.3f}")
 
 
-def edit_gates(dev, st, teacher_ckpt, val, tag, gate=True):
+def edit_gates(dev, st, teacher_ckpt, val, tag, gate=True,
+               plain_teacher=None):
     """The edit took: on the 4 poses of `val`, the student against the
     mapped teacher reads >= MIN_EDIT_PSNR; on the pixels the edit changes
     (those where the mapped teacher's view differs from the unedited
     teacher's by > 0.1; at least 100) the student is closer to the mapped
     teacher than the unedited teacher is. gate=False prints the same
-    numbers and checks only that the student's PSNR is finite -> (student
-    PSNR, edited pixels)."""
+    numbers and checks only that the student's PSNR is finite.
+    plain_teacher: the unedited teacher's trainer, loaded; by default an NGP
+    one loads `teacher_ckpt`. -> (student PSNR, edited pixels)."""
     from seal3d_tpu_torch.models import ngp
     from seal3d_tpu_torch.train.trainer import Trainer
 
-    plain_teacher = Trainer(ngp, st.fcfg, st.opts, st.cfg, dataset=val,
-                            device=dev, name="teacher_unedited")
-    plain_teacher.load_checkpoint(teacher_ckpt)
+    if plain_teacher is None:
+        plain_teacher = Trainer(ngp, st.fcfg, st.opts, st.cfg, dataset=val,
+                                device=dev, name="teacher_unedited")
+        plain_teacher.load_checkpoint(teacher_ckpt)
     ps_student, ps_teacher = [], []
     n_px, se_student, se_teacher = 0, 0.0, 0.0
     for pose in val.poses[:4]:
@@ -1962,6 +1990,233 @@ def mesh_phase(dev, ws, teacher_ckpt, student):
     check(lift >= 0.5 * BRUSH["brushPressure"],
           f"the brush did not lift the mesh's face: {face}")
     return total
+
+
+TF_STEPS = 1500                             # phase 21a's iterations
+TF_UPSAMPLE = (300, 500, 700, 900, 1100)    # 128^3 -> 300^3, log-spaced
+TF_VOXELS = 300**3                          # the CLI's --resolution1 cubed
+MIN_TF_PSNR = 20.0      # phase 21a, 4 val views at 256x256
+CP_STEPS, CP_UPSAMPLE, MIN_CP_GAIN_DB = 300, 150, 2.0   # phase 21b
+
+
+def kernel_counters():
+    """Every kernel wrapper of the table, by name (their launch counts)."""
+    from seal3d_tpu_torch.ops import (halo_encode, hash_encode, ladder,
+                                      lookup)
+
+    return {"halo_encode": halo_encode.halo_encode,
+            "halo_encode_bwd": halo_encode.halo_encode_bwd,
+            "halo_encode_levels": halo_encode.halo_encode_levels,
+            "hash_encode": hash_encode.hash_encode,
+            "hash_encode_bwd": hash_encode.hash_encode_bwd,
+            "ladder_plan": ladder.ladder_plan,
+            "multilevel_lookup": lookup.multilevel_lookup,
+            "multilevel_lookup_bwd": lookup.multilevel_lookup_bwd}
+
+
+def tensorf_phase(dev, ws):
+    """Phase 21: (a) TensoRF VM through main_tensoRF at full width, (b) CP
+    at 128x128, (c) main_SealTensoRF on (a)'s teacher. No kernel of the
+    table is launched on this path."""
+    from seal3d_tpu_torch import main_SealTensoRF, main_tensoRF
+    from seal3d_tpu_torch.config import common_parser, load_dataset
+    from seal3d_tpu_torch.models import tensorf
+    from seal3d_tpu_torch.train import checkpoint as ckpt_io
+    from seal3d_tpu_torch.train.tensorf_trainer import TensoRFTrainer
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+
+    # ---- (a) VM at the CLI's full width
+    ws_a = os.path.join(ws, "vm")
+    argv = O_ARGV + ["--iters", str(TF_STEPS), "--H", "256", "--W", "256",
+                     "--upsample_model_steps", *map(str, TF_UPSAMPLE),
+                     "--workspace", ws_a]
+    t0 = time.perf_counter()
+    tr = main_tensoRF.main(argv)
+    torch.cuda.synchronize()
+    print(f"[tensorf] main_tensoRF VM {TF_STEPS} steps at 256x256 "
+          f"(resolution 128^3 -> 300^3, upsamples at {TF_UPSAMPLE}, shrink "
+          f"at {tr.shrink_step}): {time.perf_counter() - t0:.2f} s in all "
+          f"(data, training, eval, 8 test renders)")
+    for seg in tr.segment_stats:
+        ms = (seg["window_s"] / seg["window_steps"] * 1e3
+              if seg["window_steps"] else float("nan"))
+        print(f"[tensorf] steps {seg['step']}-{seg['step'] + seg['steps']} "
+              f"at resolution {seg['resolution']}: {ms:.3f} ms per step "
+              f"(CUDA events over the {seg['window_steps']} steps after "
+              f"the first {seg['steps'] - seg['window_steps']}, grid "
+              f"updates included)")
+    aabb = tr.state.params["aabb"].cpu().numpy()
+    final = ckpt_io.tensorf_resolution(tr.state.params)
+    want = tensorf.n_to_reso(TF_VOXELS, aabb)
+    factors = ("sigma_mat", "sigma_vec", "color_mat", "color_vec")
+    shapes = {k: tuple(v.shape) for k, v in
+              ckpt_io.flatten_tree(tr.state.params)
+              if k.split("/")[0] in factors}
+    print(f"[tensorf] shrunk aabb {np.round(aabb, 4).tolist()}; final "
+          f"resolution {final} (n_to_reso(300^3, aabb) = {want}); factor "
+          f"shapes {shapes}")
+    check(final == want, f"final TensoRF resolution {final} != {want}")
+    check(bool((np.abs(aabb) < tr.fcfg.bound).any()),
+          f"the shrink left the box whole: {aabb}")
+    psnr_a = tr.eval_history[-1]["psnr"]
+    print(f"[tensorf] val PSNR {psnr_a:.2f} dB over 4 views at 256x256")
+    check(psnr_a >= MIN_TF_PSNR, f"TensoRF val PSNR {psnr_a:.2f} < "
+                                 f"{MIN_TF_PSNR}")
+
+    cli800 = common_parser("chip_smoke").parse_args(
+        O_ARGV + ["--H", "800", "--W", "800", "--workspace", ws_a])
+    test800 = load_dataset(cli800, "test", device=dev)
+    train_ds = tr.dataset
+    tr.attach_dataset(test800)      # the 800x800 views' intrinsics
+    secs, peaks, imgs = [], [], []
+    for pose in test800.poses[:2]:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        img, _ = tr.render_image(pose, test800.h, test800.w)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        peaks.append((torch.cuda.max_memory_allocated() - held) / 2**20)
+        imgs.append(img)
+    rs = tr.render_stats[-1]
+    print(f"[tensorf] 800x800 test views: {[round(v, 3) for v in secs]} s "
+          f"per view, peak {[round(v, 1) for v in peaks]} MiB above what is "
+          f"held ({rs['chunks_rendered']} chunks of {tr.cfg.eval_chunk} "
+          f"rays rendered, {rs['chunks_skipped']} skipped, {rs['samples']} "
+          f"samples)")
+    check(all(torch.isfinite(i).all() for i in imgs), "non-finite 800x800")
+
+    ckpt = os.path.join(ws_a, "checkpoints", f"tensorf_step{TF_STEPS:07d}.npz")
+    fresh = TensoRFTrainer(tr.fcfg, tr.opts, tr.cfg, dataset=test800,
+                           device=dev, name="tensorf_reload",
+                           upsample_steps=(), shrink_step=None)
+    fresh.init_state()
+    fresh.load_checkpoint(ckpt)
+    again, _ = fresh.render_image(test800.poses[0], test800.h, test800.w)
+    same = torch.equal(again, imgs[0])
+    print(f"[tensorf] {os.path.basename(ckpt)} reloaded into a fresh "
+          f"TensoRFTrainer at {ckpt_io.tensorf_resolution(fresh.state.params)}"
+          f": test view 0 {'bit-identical' if same else 'DIFFERS'} "
+          f"(max diff {float((again - imgs[0]).abs().max()):.3e})")
+    check(same, "the reloaded TensoRF state renders another image")
+    # a few more steps (on the training views), profiled; after the reload
+    # check, which needs the state the CLI saved
+    tr.attach_dataset(train_ds)
+    prof = profile_steps(tr)
+    fwd_ms = bwd_ms = 0.0
+    from torch.autograd import DeviceType
+    for e in prof["events"]:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.key == "tensorf.sample":
+            fwd_ms += e.device_time_total / 1e3 / prof["n"]
+        elif e.key.endswith("evaluate_function: IndexSelectBackward0"):
+            bwd_ms += e.device_time_total / 1e3 / prof["n"]
+    share = (fwd_ms + bwd_ms) / max(prof["busy_ms"], 1e-9)
+    print(f"[tensorf] one step at {final}: {prof['launches']:.0f} launches, "
+          f"device busy {prof['busy_ms']:.3f} ms; lookups: forward "
+          f"(tensorf.sample) {fwd_ms:.3f} ms, backward (the gathers' "
+          f"scatters) {bwd_ms:.3f} ms of device time, {share:.3f} of the "
+          f"busy time")
+    check(fwd_ms > 0 and bwd_ms > 0, "the profiler saw no lookup on the card")
+    del fresh, test800, imgs, again
+    vm_fcfg = tr.fcfg
+    del tr
+    torch.cuda.empty_cache()
+
+    # ---- (b) CP at 128x128
+    ws_b = os.path.join(ws, "cp")
+    argv = O_ARGV + ["--cp", "--iters", str(CP_STEPS), "--H", "128", "--W",
+                     "128", "--upsample_model_steps", str(CP_UPSAMPLE),
+                     "--workspace", ws_b]
+    t0 = time.perf_counter()
+    cp = main_tensoRF.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli128 = common_parser("chip_smoke").parse_args(
+        O_ARGV + ["--H", "128", "--W", "128"])
+    val128 = load_dataset(cli128, "val", device=dev)
+    untrained = TensoRFTrainer(cp.fcfg, cp.opts, dataclasses.replace(
+        cp.cfg, workspace=None), dataset=val128, device=dev,
+        upsample_steps=(), shrink_step=None)
+    untrained.init_state()
+    untrained.update_grid(full=True)
+    psnr0 = untrained.evaluate(dataset=val128)
+    psnr_b = cp.eval_history[-1]["psnr"]
+    print(f"[tensorf cp] main_tensoRF --cp {CP_STEPS} steps at 128x128 "
+          f"(upsample at {CP_UPSAMPLE} to "
+          f"{ckpt_io.tensorf_resolution(cp.state.params)}): {cli_s:.2f} s; "
+          f"val PSNR {psnr_b:.2f} dB against {psnr0:.2f} untrained")
+    check(psnr_b >= psnr0 + MIN_CP_GAIN_DB,
+          f"CP val PSNR {psnr_b:.2f} not {MIN_CP_GAIN_DB} dB above the "
+          f"untrained {psnr0:.2f}")
+    pth = os.path.join(ws_b, "tensorf_cp.pth")
+    ckpt_io.export_torch_tensorf(pth, cp.state.params, step=CP_STEPS)
+    loaded, res = ckpt_io.import_torch_tensorf(pth, cp.fcfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand((2**18, 3), device=dev, generator=gen) * 2 - 1
+    d = torch.nn.functional.normalize(
+        torch.randn((2**18, 3), device=dev, generator=gen), dim=-1)
+    with torch.no_grad():
+        a = tensorf.apply(cp.state.params, cp.fcfg, x, d)
+        b = tensorf.apply(loaded, cp.fcfg, x, d)
+    same = all(torch.equal(u, v) for u, v in zip(a, b))
+    leaves = dict(ckpt_io.flatten_tree(loaded))
+    differ = [k for k, v in ckpt_io.flatten_tree(cp.state.params)
+              if not torch.equal(v, leaves[k])]
+    print(f"[tensorf cp] .pth round trip at {res}: apply on 2^18 points "
+          f"{'bit-identical' if same else 'DIFFERS'}; leaves that differ: "
+          f"{differ}")
+    check(same and not differ, ".pth round trip (CP) changed the field")
+    del cp, untrained, loaded, a, b
+    torch.cuda.empty_cache()
+
+    # ---- (c) Seal on (a)'s teacher
+    ws_c = os.path.join(ws, "seal")
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = O_ARGV + ["--H", "256", "--W", "256", "--seal_config",
+                     os.path.join(here, "seal_config_bbox"),
+                     "--teacher_ckpt", ckpt, "--pretraining_epochs",
+                     str(SEAL_EPOCHS), "--extra_epochs", str(SEAL_STEPS),
+                     "--workspace", ws_c]
+    t0 = time.perf_counter()
+    st = main_SealTensoRF.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    timer = edit_outputs(st, ws_c, SEAL_EPOCHS,
+                         f"[tensorf seal] main_SealTensoRF bbox edit at "
+                         f"256x256: {cli_s:.2f} s in all;")
+    print_edit_timer(st, timer, SEAL_STEPS, "[tensorf seal]")
+    check(len(st.render_stats) == 8
+          and all(s_["nonfinite"] == 0 for s_ in st.render_stats),
+          "edited TensoRF test views: count or non-finite pixels")
+    cli256 = common_parser("chip_smoke").parse_args(
+        O_ARGV + ["--H", "256", "--W", "256", "--workspace", ws_c])
+    val = load_dataset(cli256, "val", device=dev)
+    plain = TensoRFTrainer(vm_fcfg, st.opts, st.cfg, dataset=val, device=dev,
+                           name="teacher_unedited", upsample_steps=(),
+                           shrink_step=None)
+    plain.load_checkpoint(ckpt)
+    student_db, n_px = edit_gates(dev, st, ckpt, val, "[tensorf seal]",
+                                  gate=False, plain_teacher=plain)
+    with np.load(ckpt) as data:
+        t_aabb = data["params/aabb"]
+    s_aabb = st.state.params["aabb"].cpu().numpy()
+    print(f"[tensorf seal] student aabb {np.round(s_aabb, 4).tolist()} "
+          f"against the teacher's {np.round(t_aabb, 4).tolist()}: drift "
+          f"{np.round(s_aabb - t_aabb, 4).tolist()} (the finetune's one Adam "
+          f"moves it, as in the JAX package)")
+    check(student_db >= MIN_EDIT_PSNR, f"TensoRF student PSNR "
+                                       f"{student_db:.2f} < {MIN_EDIT_PSNR}")
+    check(n_px > 0, "the TensoRF edit changes no pixel")
+
+    launched = {k: fn.launches for k, fn in counters.items()}
+    print(f"[tensorf] kernel launches over phase 21: {launched}")
+    check(not any(launched.values()), "a kernel ran on the TensoRF path")
 
 
 @contextlib.contextmanager
@@ -2979,7 +3234,8 @@ def profile_steps(tr, n: int = 3):
                 torch.cuda.synchronize()
             prof.step()
     events = traced[0]
-    stage = ("step.", "render.")   # record_function ranges of the port
+    # record_function ranges of the port
+    stage = ("step.", "render.", "tensorf.")
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
                       and not e.key.startswith(stage)),
                      key=lambda e: -e.self_device_time_total)
@@ -3006,6 +3262,7 @@ def profile_steps(tr, n: int = 3):
     for e in kernels[:12]:
         print(f"[profile]   {e.self_device_time_total / 1e3 / n:7.3f} ms "
               f"x{e.count // n:<4d} {e.key[:88]}")
+    return {"busy_ms": busy, "launches": launches, "events": events, "n": n}
 
 
 if __name__ == "__main__":

@@ -74,7 +74,7 @@ def common_parser(desc: str) -> argparse.ArgumentParser:
 def refuse_unported(args):
     """Raise NotImplementedError, naming the ROADMAP.md item, for the CLI
     options whose code is not ported yet (--gui; --error_map, --clip_text
-    and --rand_pose), in main_nerf and main_SealNeRF alike; raise
+    and --rand_pose), in every CLI of the port alike; raise
     RuntimeError where the run asks for the card (the default) and there is
     none."""
     if (torch.device(args.device).type == "cuda"
@@ -108,7 +108,7 @@ def build_options(args) -> RenderOptions:
         coarse_steps=coarse, occ_stride=getattr(args, "occ_stride", 4))
 
 
-def build_train_config(args) -> TrainConfig:
+def build_train_config(args, family: str = "ngp") -> TrainConfig:
     adaptive = getattr(args, "adaptive_budget", None)
     if adaptive is None:
         adaptive = bool(getattr(args, "O", False))
@@ -118,6 +118,10 @@ def build_train_config(args) -> TrainConfig:
         # demand-adaptive per-chunk buckets, 2^15-ray chunks
         eval_kw = dict(eval_chunk=2**15, eval_budget_per_ray=48,
                        eval_flat_frac=0.5)
+        if family == "tensorf":
+            # a TensoRF field holds [rank, M] plane and line samples per
+            # query: 4096-ray chunks keep them bounded
+            eval_kw["eval_chunk"] = 4096
     return TrainConfig(
         lr=args.lr, max_steps=args.iters, num_rays=args.num_rays,
         density_thresh=args.density_thresh,

@@ -66,16 +66,21 @@ def add_seal_args(parser):
     return parser
 
 
-def run_seal(args, field_mod, fcfg, make_trainer, name) -> SealTrainer:
+def run_seal(args, field_mod, fcfg, make_trainer, name,
+             family: str = "ngp") -> SealTrainer:
+    """The edit of one backbone: `make_trainer(tcfg, ds, name)` builds its
+    teacher trainer; `family` ('ngp' or 'tensorf') picks the train config's
+    eval chunk. A `.pth` teacher is read as NGP params, as the reference
+    reads it: another family's raises ValueError."""
     opts = build_options(args)
-    tcfg = build_train_config(args)
+    tcfg = build_train_config(args, family=family)
     # the edit first: a config of an unknown tool fails before any training
     mapper = build_mapper(load_mapper_config(args.seal_config),
                           workspace=tcfg.workspace)
     ds = load_dataset(args, "trainval", device=args.device)
 
     # ---- teacher
-    teacher_tcfg = build_train_config(args)
+    teacher_tcfg = build_train_config(args, family=family)
     teacher_tcfg.workspace = args.teacher_workspace
     teacher = make_trainer(teacher_tcfg, ds, name=f"{name}_teacher")
     teacher.init_state()
@@ -88,6 +93,12 @@ def run_seal(args, field_mod, fcfg, make_trainer, name) -> SealTrainer:
                 f"{name}_teacher")
         if path and os.path.exists(path):
             if path.endswith(".pth"):
+                if family != "ngp":
+                    raise ValueError(
+                        f"--teacher_ckpt {path}: a .pth teacher is read as "
+                        f"NGP params (the JAX package's main_SealNeRF.py, "
+                        f"which has no {family} .pth teacher either); give "
+                        f"an .npz checkpoint of the {family} teacher")
                 teacher.state = teacher.state._replace(
                     params=ckpt_io.import_torch_ngp(
                         path, teacher.state.params, grid_cfg=fcfg.grid))

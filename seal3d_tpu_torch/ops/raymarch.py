@@ -17,6 +17,7 @@ requires grad.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -54,6 +55,23 @@ def near_far_from_aabb(rays_o: torch.Tensor, rays_d: torch.Tensor,
     far = torch.maximum(tmax, near + 1e-6)
     miss = tmax < tmin
     return torch.where(miss, 1e9, near), torch.where(miss, 1e9, far)
+
+
+def sph_from_ray(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                 radius: float) -> torch.Tensor:
+    """Far intersection of each ray with the background sphere of `radius`
+    -> [N, 2] (theta / (pi/2), phi / pi) in [-1, 1], the background net's
+    coordinates (d need not be unit)."""
+    dd = (rays_d * rays_d).sum(-1)
+    od = (rays_o * rays_d).sum(-1)
+    oo = (rays_o * rays_o).sum(-1)
+    disc = (od * od - dd * (oo - radius * radius)).clamp(min=0.0)
+    t = (-od + torch.sqrt(disc)) / dd.clamp(min=1e-15)
+    p = rays_o + t[..., None] * rays_d
+    theta = torch.atan2(p[..., 1], torch.sqrt(p[..., 0] ** 2 + p[..., 2] ** 2)
+                        ) / (math.pi / 2)
+    phi = torch.atan2(p[..., 0], p[..., 2]) / math.pi
+    return torch.stack([theta, phi], dim=-1)
 
 
 def mip_from_pos(x: torch.Tensor, max_cascade: int) -> torch.Tensor:

@@ -29,7 +29,7 @@ from seal3d_tpu_torch.ops.raymarch import (SQRT3, MarchedRays,
                                            march_rays_flat_2level,
                                            march_rays_flat_2level_kernel,
                                            march_rays_grid,
-                                           near_far_from_aabb)
+                                           near_far_from_aabb, sph_from_ray)
 
 
 @dataclass(frozen=True)
@@ -96,6 +96,24 @@ def _not_ported(what: str, item: str):
                                f"'{item}'")
 
 
+def _check_background(field, opts: RenderOptions):
+    """bg_radius > 0 needs a field with a background net (TensoRF's); NGP's
+    is not ported."""
+    if opts.bg_radius > 0 and getattr(field, "background", None) is None:
+        raise _not_ported("the background net of this field",
+                          "Other backends and families")
+
+
+def _background(field, params, cfg, opts: RenderOptions, rays_o, rays_d,
+                bg_color):
+    """What shows behind the samples: the field's background net at each
+    ray's far point on the sphere of radius bg_radius, else bg_color."""
+    if opts.bg_radius > 0:
+        sph = sph_from_ray(rays_o, rays_d, opts.bg_radius)
+        return field.background(params, cfg, sph, rays_d)
+    return bg_color
+
+
 def flat_budget(n: int, opts: RenderOptions) -> int:
     """Flat sample budget of an n-ray batch (multiple of 128; Python round
     as in the reference)."""
@@ -156,12 +174,13 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
     reference's `perturb=True`, whose numbers it draws from `key`), or None.
     flat_frac None (or >= 1) selects the [N, K] grid branch, else the packed
     flat branch (march_flat, which takes `ladder_tables`).
+    With bg_radius > 0 the field's background net paints what the samples
+    leave uncovered (`_background`).
     Returns dict(image [N, 3], depth [N], weights_sum [N], num_samples []).
     """
     n = rays_o.shape[0]
     k = opts.budget_per_ray
-    if opts.bg_radius > 0:
-        raise _not_ported("the background net", "Other backends and families")
+    _check_background(field, opts)
     if opts.compaction != "topk":
         raise NotImplementedError("the legacy 'flat' compaction is left out of "
                                   "the port (ROADMAP.md, 'Not to port')")
@@ -202,7 +221,8 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
             out = composite_dense(sigma, rgb.reshape(n, k, 3), m.deltas,
                                   m.ts, m.valid)
         num_samples = m.valid.sum()
-    image = out["image"] + (1.0 - out["weights_sum"])[:, None] * bg_color
+    bg = _background(field, params, cfg, opts, rays_o, rays_d, bg_color)
+    image = out["image"] + (1.0 - out["weights_sum"])[:, None] * bg
     return {"image": image, "depth": out["depth"],
             "weights_sum": out["weights_sum"], "num_samples": num_samples}
 
@@ -245,8 +265,7 @@ def render_rays_dense(params, field, cfg, rays_o, rays_d, opts: RenderOptions,
     from `generator`. Without perturb: no jitter, midpoint uniforms.
     Returns dict(image [N, 3], depth [N], weights_sum [N], num_samples []:
     the samples composited; the reference returns no count)."""
-    if opts.bg_radius > 0:
-        raise _not_ported("the background net", "Other backends and families")
+    _check_background(field, opts)
     n, dev = rays_o.shape[0], rays_o.device
     aabb = torch.tensor(opts.aabb, dtype=torch.float32, device=dev)
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, opts.min_near)
@@ -291,7 +310,8 @@ def render_rays_dense(params, field, cfg, rays_o, rays_d, opts: RenderOptions,
     with record_function("render.composite"):
         out = composite_dense(sigma.reshape(z.shape) * opts.density_scale,
                               rgb.reshape(*z.shape, 3), deltas_of(z), z)
-    image = out["image"] + (1.0 - out["weights_sum"])[:, None] * bg_color
+    bg = _background(field, params, cfg, opts, rays_o, rays_d, bg_color)
+    image = out["image"] + (1.0 - out["weights_sum"])[:, None] * bg
     return {"image": image, "depth": out["depth"],
             "weights_sum": out["weights_sum"],
             "num_samples": torch.tensor(z.numel(), device=dev)}

@@ -3,7 +3,8 @@ remapping of field queries and the occupancy hacks.
 
 - `make_teacher_field` wraps a field module so that every query is remapped
   through the mapper before evaluation and recoloured after; a secondary
-  teacher can answer the mapped region (cross-scene editing). The renderer
+  teacher can answer the mapped region (cross-scene editing), and the base
+  field's background net, where it has one, paints behind it. The renderer
   is functional, so the teacher is just another field module + params.
 - `force_fill_cells` / `cells_to_byte_masks` / `hack_bitfield` precompute
   the Morton cells covering the edit region and force their occupancy bits
@@ -59,6 +60,10 @@ def make_teacher_field(base_field, mapper: SealMapper, base_cfg,
             rgb = base_field.color(params, cfg, xm, dm, geo_feat)
             rgb_mod = map_color(mapper, xm, dm, rgb, mask=mask)
             return torch.where(mask[:, None], rgb_mod, rgb)
+
+        # the base field's background net (TensoRF's), unmapped; None for
+        # a field without one
+        background = getattr(base_field, "background", None)
 
     return TeacherField
 

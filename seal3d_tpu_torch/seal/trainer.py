@@ -6,8 +6,9 @@ of points are sampled in three shells (local = the edit region, surrounding
 = the extended bounds minus the edit region, global = the whole scene box),
 the ground-truth sigma and colour are queried once from the frozen teacher
 through the proxy mapping, then the student is fitted with L1 on (log1p
-sigma, colour) at a high constant learning rate with its MLPs frozen: only
-the hash tables move.
+sigma, colour) at a high constant learning rate. What moves depends on the
+family (`_pretrain_leaves`): NGP's hash tables (its MLPs are frozen), every
+TensoRF leaf but `aabb` (and the buffers `T`, `R`).
 
 Stage 2, global finetuning: every training view is rendered once by the
 mapped teacher (`proxy_datasets`) and normal image training resumes with the
@@ -97,10 +98,13 @@ def sample_grid_points(bounds: np.ndarray, step: float, angle_step: float,
     return points, dirs
 
 
-def _table_leaves(params: dict) -> dict:
-    """The leaves the pretraining moves: the hash tables (NGP freezes its
-    MLPs in stage 1)."""
-    return {k: v for k, v in params.items() if "encoder" in k}
+def _pretrain_leaves(params: dict) -> dict:
+    """The top-level entries the pretraining moves: an NGP field (it has a
+    `sigma_net`) its hash tables, its MLPs frozen; the TensoRF family
+    everything but the geometric buffers `aabb`, `T` and `R`."""
+    if "sigma_net" in params:
+        return {k: v for k, v in params.items() if "encoder" in k}
+    return {k: v for k, v in params.items() if k not in ("aabb", "T", "R")}
 
 
 class SealTrainer(Trainer):
@@ -368,11 +372,12 @@ class SealTrainer(Trainer):
         self.is_pretraining = True
         if self.state is None:
             self.init_state()
-        # tables only, Adam at a constant learning rate (no decay: the
-        # schedule's horizon is infinite); the MLP leaves get no update
+        # the family's pretraining leaves, Adam at a constant learning rate
+        # (no decay: the schedule's horizon is infinite); the others get no
+        # update
         self._pre_opt = Optimizer(pcfg.lr, math.inf)
         self._pre_opt_state = self._pre_opt.init(
-            _table_leaves(self.state.params))
+            _pretrain_leaves(self.state.params))
         if pcfg.export_debug and self.cfg.workspace:
             vis = os.path.join(self.cfg.workspace, "pretrain_vis")
             os.makedirs(vis, exist_ok=True)
@@ -408,19 +413,23 @@ class SealTrainer(Trainer):
         return sl + cl
 
     def _pretrain_step(self, batch: dict) -> torch.Tensor:
-        """One pretrain batch: loss, table gradients, Adam on the tables,
-        EMA over every leaf. Returns the loss (a device tensor)."""
+        """One pretrain batch: loss, gradients of the pretraining leaves,
+        Adam on them, EMA over every leaf. Returns the loss (a device
+        tensor)."""
         st = self.state
-        tables = {k: v.detach().requires_grad_(True)
-                  for k, v in _table_leaves(st.params).items()}
-        loss = self.pretrain_loss({**st.params, **tables}, batch)
-        grads = dict(zip(tables, torch.autograd.grad(loss,
-                                                     list(tables.values()))))
+        moved = _pretrain_leaves(st.params)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in ckpt_io.flatten_tree(moved)}
+        loss = self.pretrain_loss(
+            {**st.params, **ckpt_io.map_tree(moved, lambda k, _: leaves[k])},
+            batch)
+        grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                     list(leaves.values()))))
         with torch.no_grad():
             updates, self._pre_opt_state = self._pre_opt.update(
-                grads, self._pre_opt_state)
-            params = {**st.params, **apply_updates(
-                _table_leaves(st.params), updates)}
+                ckpt_io.map_tree(moved, lambda k, _: grads[k]),
+                self._pre_opt_state)
+            params = {**st.params, **apply_updates(moved, updates)}
             d = self.cfg.ema_decay
             ema = ckpt_io.map_trees(lambda e, p: e * d + p * (1.0 - d),
                                     st.ema_params, params)

@@ -14,7 +14,14 @@ keyed the same way (`state_to_arrays` / `state_from_arrays`).
 `export_torch_ngp` / `import_torch_ngp` write and read the NGP params as a
 torch `.pth` in the upstream torch-ngp / Seal-3D state-dict naming (port of
 the reference's functions of the same names), converting padded-level table
-layouts to the reference's native one and back.
+layouts to the reference's native one and back; `export_torch_tensorf` /
+`import_torch_tensorf` do the same for TensoRF (VM or CP) params, with the
+`resolution` metadata the upstream loader re-instantiates from.
+
+A TensoRF state changes its factor shapes when it is upsampled or shrunk,
+so its load takes the file's shapes (`take_shapes=True`, what the
+reference's `load_state` does for every state); NGP's keeps the strict
+shape check.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from seal3d_tpu_torch.models import tensorf
 from seal3d_tpu_torch.ops.hashgrid import convert_table_layout
 
 
@@ -94,10 +102,12 @@ def state_to_arrays(state: Any, full: bool = True) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in flatten_tree(state)}
 
 
-def state_from_arrays(arrays: Mapping[str, np.ndarray], template: Any) -> Any:
+def state_from_arrays(arrays: Mapping[str, np.ndarray], template: Any,
+                      take_shapes: bool = False) -> Any:
     """Fill the structure (devices, dtypes) of `template` from arrays keyed
     by path; keys missing from `arrays` keep the template's value, with a
-    warning (non-strict, like the reference)."""
+    warning (non-strict, like the reference). A shape that differs from the
+    template's raises, unless take_shapes (the file's shape is taken)."""
     missing = []
 
     def pick(key, leaf):
@@ -105,7 +115,7 @@ def state_from_arrays(arrays: Mapping[str, np.ndarray], template: Any) -> Any:
             missing.append(key)
             return leaf
         arr = np.asarray(arrays[key])
-        if arr.shape != tuple(leaf.shape):
+        if arr.shape != tuple(leaf.shape) and not take_shapes:
             raise ValueError(f"checkpoint {key}: shape {arr.shape} != "
                              f"{tuple(leaf.shape)}")
         return torch.from_numpy(arr).to(device=leaf.device, dtype=leaf.dtype)
@@ -123,10 +133,11 @@ def save_state(path: str, state: Any, full: bool = True):
     np.savez_compressed(path, **state_to_arrays(state, full))
 
 
-def load_state(path: str, template: Any) -> Any:
+def load_state(path: str, template: Any, take_shapes: bool = False) -> Any:
     """Load a `.npz` into the structure (and devices) of `template`."""
     with np.load(path) as data:
-        return state_from_arrays({k: data[k] for k in data.files}, template)
+        return state_from_arrays({k: data[k] for k in data.files}, template,
+                                 take_shapes=take_shapes)
 
 
 def prune_checkpoints(directory: str, name: str, keep: int = 2):
@@ -210,3 +221,86 @@ def import_torch_ngp(pth_path: str, params: dict, grid_cfg=None) -> dict:
                 if net in out and i < len(out[net]):
                     out[net][i]["w"] = like(v.T, out[net][i]["w"])
     return out
+
+
+def tensorf_resolution(params: dict) -> list:
+    """Per-axis grid resolution of TensoRF params, from the sigma lines
+    (line i spans world axis VEC_IDS[i])."""
+    res = [0, 0, 0]
+    for i in range(3):
+        res[tensorf.VEC_IDS[i]] = int(params["sigma_vec"][i].shape[1])
+    return res
+
+
+def export_torch_tensorf(path: str, params: dict, step: int = 0):
+    """Write TensoRF (VM or CP) params as a reference-compatible `.pth`:
+    mats `{sigma,color}_mat.{i}` [1, R, H, W], vecs `{sigma,color}_vec.{i}`
+    [1, R, D, 1], `basis_mat.weight` and the bias-free Linears
+    `{color,bg}_net.{i}.weight` [out, in] (the params store [in, out]),
+    `bg_mat` [1, R, H, W], `aabb_train` / `aabb_infer`, and the
+    `resolution` metadata."""
+    def t(v):
+        return v.detach().cpu().contiguous().clone()
+
+    sd = {}
+    for nm in ("sigma", "color"):
+        for i, m in enumerate(params.get(f"{nm}_mat") or []):
+            sd[f"{nm}_mat.{i}"] = t(m[None])
+        for i, v in enumerate(params[f"{nm}_vec"]):
+            sd[f"{nm}_vec.{i}"] = t(v[None, ..., None])
+    sd["basis_mat.weight"] = t(params["basis_mat"][0]["w"].T)
+    for net in ("color_net", "bg_net"):
+        for i, layer in enumerate(params.get(net, ())):
+            sd[f"{net}.{i}.weight"] = t(layer["w"].T)
+    if "bg_mat" in params:
+        sd["bg_mat"] = t(params["bg_mat"][None])
+    sd["aabb_train"] = t(params["aabb"])
+    sd["aabb_infer"] = t(params["aabb"])
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"model": sd, "resolution": tensorf_resolution(params),
+                "global_step": step, "epoch": 0, "stats": {}}, path)
+
+
+def import_torch_tensorf(pth_path: str, cfg, device=None):
+    """A reference TensoRF `.pth` -> (params on `device`, resolution),
+    re-instantiated at the checkpoint's shape: a params tree is made at its
+    `resolution` metadata (else the sigma lines' lengths) and filled from
+    the state dict; keys the file lacks keep their init values.
+    cfg.decomposition must match the file's (VM files carry `sigma_mat.*`):
+    a mismatch raises ValueError."""
+    ckpt = torch.load(pth_path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model", ckpt)
+    is_vm = any(k.endswith("sigma_mat.0") for k in sd)
+    if is_vm != (cfg.decomposition == "vm"):
+        raise ValueError(f"checkpoint decomposition ({'vm' if is_vm else 'cp'})"
+                         f" != cfg.decomposition ({cfg.decomposition})")
+    res = ckpt.get("resolution")
+    if res is None:
+        res = [0, 0, 0]
+        for i in range(3):
+            key = next(k for k in sd if k.endswith(f"sigma_vec.{i}"))
+            res[tensorf.VEC_IDS[i]] = int(sd[key].shape[2])
+    params = tensorf.init(cfg, generator=torch.Generator().manual_seed(0),
+                          resolution=res)
+
+    def f32(v):
+        return v.detach().to(torch.float32).contiguous()
+
+    for k, v in sd.items():
+        base = k.split(".")
+        name = base[-2] if base[-1].isdigit() else base[-1]
+        if name in ("sigma_mat", "color_mat"):
+            params[name][int(base[-1])] = f32(v[0])
+        elif name in ("sigma_vec", "color_vec"):
+            params[name][int(base[-1])] = f32(v[0, :, :, 0])
+        elif k.endswith("basis_mat.weight"):
+            params["basis_mat"][0]["w"] = f32(v.T)
+        elif name == "bg_mat" and "bg_mat" in params:
+            params["bg_mat"] = f32(v[0])
+        elif k.endswith("aabb_train"):
+            params["aabb"] = f32(v)
+        else:
+            m = _TORCH_NGP_LAYER.search(k)
+            if m and m.group(1) in params:
+                params[m.group(1)][int(m.group(2))]["w"] = f32(v.T)
+    return map_tree(params, lambda _, t: t.to(device)), list(res)

@@ -11,11 +11,18 @@ scale of the D-NeRF family (`lr_net_scale`), is not on the ported path.
 Adam bias-corrects with
 its count after the increment; the schedule reads its own count before the
 increment. Everything is float32 with int32 counts, as in the reference.
+
+`GroupedOptimizer` is optax.multi_transform over the params' top-level keys,
+one `Optimizer` per labelled group or a frozen group with zero updates; its
+state has optax's tree shape (`inner_states/<group>/inner_state/...`, the
+leaves of other groups absent), so its checkpoint keys are the reference's
+too. `tensorf_optimizer` is the TensoRF family's (port of
+seal3d_tpu/train/tensorf_trainer.py `tensorf_optimizer`).
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import torch
 
@@ -76,3 +83,65 @@ class Optimizer:
 def apply_updates(params, updates):
     """params + updates, leaf by leaf (optax.apply_updates)."""
     return map_trees(lambda p, u: p + u, params, updates)
+
+
+class MaskedState(NamedTuple):
+    """optax.masked's state: one group's inner state (empty when frozen)."""
+    inner_state: Any
+
+
+class PartitionState(NamedTuple):
+    """optax.multi_transform's state: {group: MaskedState}."""
+    inner_states: dict
+
+
+class GroupedOptimizer:
+    """optax.multi_transform over top-level param keys: `label(key)` names
+    each key's group; `groups` maps a group to its Optimizer, or to None for
+    a frozen group (optax.set_to_zero: a zero update, no state)."""
+
+    def __init__(self, groups: Mapping[str, Optional[Optimizer]],
+                 label: Callable[[str], str]):
+        self.groups = dict(groups)
+        self.label = label
+
+    def _part(self, tree: dict, group: str) -> dict:
+        return {k: v for k, v in tree.items() if self.label(k) == group}
+
+    def init(self, params):
+        return PartitionState({
+            g: MaskedState(() if opt is None
+                           else opt.init(self._part(params, g)))
+            for g, opt in self.groups.items()})
+
+    @torch.no_grad()
+    def update(self, grads, state):
+        """(updates shaped like grads, new state)."""
+        updates, inner = {}, {}
+        for g, opt in self.groups.items():
+            part = self._part(grads, g)
+            if opt is None:
+                updates.update(map_tree(part, lambda _, t: torch.zeros_like(t)))
+                inner[g] = MaskedState(())
+            else:
+                u, s = opt.update(part, state.inner_states[g].inner_state)
+                updates.update(u)
+                inner[g] = MaskedState(s)
+        return {k: updates[k] for k in grads}, PartitionState(inner)
+
+
+def tensorf_optimizer(max_steps: int, lr_factor: float = 2e-2,
+                      lr_net: float = 1e-3) -> GroupedOptimizer:
+    """The TensoRF family's optimizer: the `*_mat` / `*_vec` factors at
+    lr_factor, `basis_mat`, `color_net` and `bg_net` at lr_net, `aabb`
+    frozen; each group Adam(0.9, 0.99, 1e-15) with the decay
+    lr * 0.1^min(step / max_steps, 1)."""
+
+    def label(key: str) -> str:
+        if key in ("basis_mat", "color_net", "bg_net"):
+            return "net"
+        return "frozen" if key == "aabb" else "factor"
+
+    return GroupedOptimizer({"factor": Optimizer(lr_factor, max_steps),
+                             "net": Optimizer(lr_net, max_steps),
+                             "frozen": None}, label)

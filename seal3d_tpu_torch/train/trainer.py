@@ -148,7 +148,11 @@ class Trainer:
 
     def __init__(self, field_mod, field_cfg, opts: RenderOptions,
                  cfg: TrainConfig, dataset=None, seed: int = 0, device=None,
-                 name: str = "ngp", use_dense: bool = False):
+                 name: str = "ngp", use_dense: bool = False, reg_fn=None,
+                 optimizer=None):
+        """reg_fn: params -> [] tensor added to each step's loss (TensoRF's
+        L1 density sparsity), or None; optimizer: an Optimizer-like object
+        (`init`, `update`), by default Adam over every leaf at cfg.lr."""
         if cfg.error_map or cfg.rand_pose >= 0:
             raise NotImplementedError(
                 "error-map ray sampling and CLIP-guided random poses are not "
@@ -173,7 +177,8 @@ class Trainer:
         # step and occupancy randomness on the device itself
         self.init_generator = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
-        self.optimizer = Optimizer(cfg.lr, cfg.max_steps)
+        self.reg_fn = reg_fn
+        self.optimizer = optimizer or Optimizer(cfg.lr, cfg.max_steps)
         self.state: Optional[TrainState] = None
         self.dataset = None
         # one dict per render_image call (seconds, chunks, buckets, samples,
@@ -285,7 +290,8 @@ class Trainer:
                 jitter: Optional[torch.Tensor]):
         """(loss [], render dict) of one batch: the mean over rays of the
         MSE over RGB plus, where the batch carries `gt_depth` (a
-        teacher-proxied Seal dataset), the squared depth error. With
+        teacher-proxied Seal dataset), the squared depth error, plus
+        `reg_fn(params)` where the trainer has one. With
         use_dense the batch's `z_jitter` and `pdf_u` perturb the dense
         oracle (drawn from the trainer's generator where None)."""
         if self.use_dense:
@@ -303,7 +309,10 @@ class Trainer:
         per_ray = ((out["image"] - batch["gt"]) ** 2).mean(-1)
         if "gt_depth" in batch:
             per_ray = per_ray + (out["depth"] - batch["gt_depth"]) ** 2
-        return per_ray.mean(), out
+        loss = per_ray.mean()
+        if self.reg_fn is not None:
+            loss = loss + self.reg_fn(params)
+        return loss, out
 
     def loss_and_grads(self, params, occ: OccupancyState, batch: dict,
                        jitter: Optional[torch.Tensor]):
@@ -651,7 +660,9 @@ class Trainer:
                 for ci in range(n_chunks)]).cpu().numpy()
             for ci in range(n_chunks):
                 fine, grp = int(cnts[ci, 0]), int(cnts[ci, 1])
-                if fine == 0:  # no background net: renders to exactly bg
+                # a chunk with no sample renders to exactly bg, unless a
+                # background net paints it
+                if fine == 0 and self.opts.bg_radius <= 0:
                     skip[ci] = True
                 else:
                     buckets[ci] = self._pick_bucket(chunk, fine, grp)
