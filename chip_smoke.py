@@ -222,6 +222,30 @@ Phases, each of which raises (exit code != 0) when it fails:
    `.npz` at phase 14's recipe (50 epochs, 500 steps, 256x256): the stages
    of timer.json, the student against the mapped teacher on 4 val views
    (>= 25 dB), the pixels the edit changes (> 0), the student's aabb drift.
+22. the rest of main_nerf (it runs right after phase 7): (a) a Blender
+   tree at nerf_synthetic's layout, written by the port's own code:
+   SyntheticScene renders of 100 train, 4 val and 2 test views at 800x800
+   (random orbit poses of radius 2.2) as <split>/r_<i>.png through the
+   port's PNG writer and transforms_<split>.json through its
+   ngp_to_nerf_matrix; (b) NeRFDataset.load of it: seconds, whether cv2
+   imports (the loader then reads through it, else through read_png),
+   images bit-identical to the written ones and poses within 1e-5; (c)
+   `python -m seal3d_tpu_torch.main_nerf <tree> -O --bound 1.0 --scale
+   1.0 --dt_gamma 0 --min_near 0.05 --max_steps 512 --iters 576`, then the
+   same with --error_map: ms a step after the first 48, launches a step,
+   val PSNR on the 4 views (>= 25 dB), K1 launched once a field call, the
+   share of error-map cells moved off 0.1, and K1 against its plain
+   version on one more error-map step; (d) the same with --bg_radius 32,
+   its val PSNR >= 2 dB above its untrained field's (on this white
+   background the net trains below the plain field in both packages), and
+   a .pth round trip of its params in the halo layout (apply and
+   background bit-identical on 2^16 points); (e) test view 0 of (c)'s state at 800x800 with
+   term_rounds 2 and 4 against 1 at 192 samples a ray (and one round at
+   -O's 48, for its time and samples): mean |d image| < 1e-3, share of
+   values off by > 2e-2 below 2e-3, mean |d weights_sum| < 1e-3, s a view
+   and field samples each way; (f) one --rand_pose 0 --clip_random_init
+   guided step where transformers imports (finite loss, the params
+   moved), else the CLI's named exit.
 The line before the last is the kernel table as JSON (eight kernels, each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
@@ -461,6 +485,12 @@ def main(argv=None):
             tr7.train_step()
         step_case = dict(seen[-1], name="real train step (packed, ray order)")
         lap("7")
+        fwd, bwd, err = blender_phase(dev, ws, smi)
+        k1_fwd["launches"] += fwd
+        k1_bwd["launches"] += bwd
+        k1_fwd["max_abs_err"] = max(k1_fwd["max_abs_err"], err)
+        torch.cuda.empty_cache()
+        lap("22")
         hash_rows = hash_kernels_phase(dev)
         lap("8")
         hash_trainers = {}
@@ -835,6 +865,366 @@ def train_phase(ws, backend="halo"):
           f"{time.perf_counter() - t0:.2f} s")
     profile_steps(tr)
     return tr, fwd, bwd
+
+
+# phase 22: main_nerf on a Blender tree at nerf_synthetic's layout (800x800
+# views in <split>/r_<i>.png, transforms_<split>.json), cut from its 100 /
+# 100 / 200 train / val / test views to 100 / 4 / 2
+BLENDER_VIEWS = {"train": 100, "val": 4, "test": 2}
+BLENDER_HW = 800
+BG_RADIUS = 32.0
+TERM_ROUNDS = (2, 4)
+# (d): the background net's cost on the tree's RGB copy (plain minus
+# --bg_radius val PSNR after this recipe's 576 steps) in the JAX package:
+# 31.26 - 14.97 dB from scripts/bg_gap_witness.py on the tree at 200x200
+# on the CPU (xla backend); the port's cost on the card may exceed it by
+# at most BG_GAP_TOL_DB
+BG_GAP_REF_DB = 16.29
+BG_GAP_TOL_DB = 1.0
+
+
+def write_blender_tree(dev, root, rgb_root, hw=BLENDER_HW):
+    """Phase 22a -> {split: (ngp-convention poses [n, 4, 4], images [n, H,
+    W, 4] uint8)} written under root as RGBA, as nerf_synthetic's frames
+    are: SyntheticScene renders at random orbit poses of radius 2.2 (fov 50
+    degrees, as its make_dataset) on white and on black, whose difference
+    is the alpha and whose black render the premultiplied colour; PNGs by
+    the port's writer, NeRF-convention matrices by ngp_to_nerf_matrix at
+    scale 1; the same views on white as RGB under rgb_root."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seal3d_tpu_torch.data.provider import ngp_to_nerf_matrix, rand_poses
+    from seal3d_tpu_torch.data.synthetic import SyntheticScene
+    from seal3d_tpu_torch.train.video import write_png
+
+    scene, h = SyntheticScene(), hw
+    fx = 0.5 * h / np.tan(np.deg2rad(25.0))
+    intr = np.array([fx, fx, h / 2, h / 2], np.float32)
+    rng = np.random.default_rng(22)
+    written = {}
+    for split, n in BLENDER_VIEWS.items():
+        poses = rand_poses(rng, n, radius=2.2,
+                           theta_range=(30, 120)).astype(np.float32)
+        frames, imgs, rgbs = [], [], []
+        for i, pose in enumerate(poses):
+            white, _ = scene.render_view(pose, intr, h, h, chunk=2**16,
+                                         device=dev)
+            black, _ = scene.render_view(pose, intr, h, h, chunk=2**16,
+                                         device=dev, bg=0.0)
+            alpha = (1.0 - (white - black).mean(-1, keepdim=True)).clamp(0, 1)
+            straight = torch.where(alpha > 0, black / alpha.clamp_min(1e-8),
+                                   0.0)
+            rgba = torch.cat([straight, alpha], -1)
+            imgs.append((rgba.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
+            rgbs.append((white.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
+            frames.append({"file_path": f"./{split}/r_{i}", "rotation": 0.0,
+                           "transform_matrix":
+                               ngp_to_nerf_matrix(pose, scale=1.0).tolist()})
+        for top, views in ((root, imgs), (rgb_root, rgbs)):
+            os.makedirs(os.path.join(top, split), exist_ok=True)
+            # zlib lets go of the GIL: the PNGs compress side by side
+            with ThreadPoolExecutor(8) as pool:
+                list(pool.map(lambda i: write_png(os.path.join(
+                    top, split, f"r_{i}.png"), views[i]), range(n)))
+            with open(os.path.join(top, f"transforms_{split}.json"), "w") as f:
+                json.dump({"camera_angle_x": float(2 * np.arctan(0.5 * h / fx)),
+                           "frames": frames}, f, indent=1)
+        written[split] = (poses, np.stack(imgs))
+    return written
+
+
+def png_filter_rows(path) -> list:
+    """Rows of an 8-bit PNG under each scanline filter type 0-4."""
+    from seal3d_tpu_torch.data.provider import png_scanlines
+
+    raw, _, w, c = png_scanlines(path)
+    rows = np.frombuffer(raw, np.uint8)[::w * c + 1]
+    return np.bincount(rows, minlength=5).tolist()
+
+
+def blender_cli(argv, tag, min_psnr=MIN_VAL_PSNR):
+    """main_nerf on the Blender tree with the kernel counts set to 0 just
+    before and read just after -> (trainer, K1 forward, K1 backward
+    launches). Prints ms a step after the warm-up steps, launches a step,
+    val PSNR (gated at min_psnr) and checks that K1 ran once a field call
+    and no other kernel of the table ran."""
+    from seal3d_tpu_torch import main_nerf
+    from seal3d_tpu_torch.train.trainer import TIMING_WARMUP
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tr = main_nerf.main(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in counters.items()}
+    fwd, bwd = counts.pop("halo_encode"), counts.pop("halo_encode_bwd")
+    st = tr.train_stats
+    step_ms = st["window_s"] / st["window_steps"] * 1e3
+    chunks = sum(s["chunks_rendered"] for s in tr.render_stats)
+    field_calls = (TRAIN_STEPS + grid_field_calls(st["grid_updates"], 1)
+                   + chunks)
+    psnr_db = tr.eval_history[-1]["psnr"]
+    prof = profile_steps(tr, n=3)
+    hw = f"{BLENDER_HW}x{BLENDER_HW}"
+    print(f"[blender {tag}] main_nerf {TRAIN_STEPS} steps on "
+          f"{len(tr.dataset)} {hw} views: {cli_s:.2f} s in all (load, "
+          f"train, eval, test renders); steps {TIMING_WARMUP + 1}-"
+          f"{TRAIN_STEPS}: {step_ms:.3f} ms a step (grid updates included); "
+          f"{prof['launches']:.0f} launches and {prof['busy_ms']:.3f} ms of "
+          f"device time a step (flat_frac {tr.opts.flat_frac}); val PSNR "
+          f"{psnr_db:.2f} dB over {BLENDER_VIEWS['val']} views at {hw}")
+    print(f"[blender {tag}] K1 launches: backward {bwd} (train steps "
+          f"{TRAIN_STEPS}), forward {fwd} (field calls {field_calls}, "
+          f"{chunks} rendered eval/test chunks); the other kernels {counts}")
+    check(bwd == TRAIN_STEPS, f"{tag}: K1 bwd launches {bwd} != steps")
+    check(fwd == field_calls, f"{tag}: K1 fwd launches {fwd} != field "
+                              f"calls {field_calls}")
+    check(not any(counts.values()), f"{tag}: other kernels ran: {counts}")
+    check(psnr_db >= min_psnr, f"{tag}: val PSNR {psnr_db:.2f} < {min_psnr}")
+    return tr, fwd, bwd
+
+
+def term_rounds_renders(tr, pose):
+    """Phase 22e: test view 0 at 800x800 with term_rounds 1, 2 and 4 on
+    tr's state -> {(rounds, samples a ray): (image, weights_sum, s a view,
+    field samples, chunks by bucket)}; weights_sum from the view rendered on
+    white and on black (image = C + (1 - weights_sum) * bg). One round at
+    -O's 48 samples a ray, then 1, 2 and 4 rounds at 192 (the TrainConfig
+    default: -O's budget caps dense chunks, whose one round then thins its
+    samples where the rounds' larger total budget keeps them), every round
+    at the chunk's whole budget, so the comparison sees what termination
+    drops."""
+    h = BLENDER_HW
+    cfg, opts = tr.cfg, tr.eval_opts
+    out = {}
+    try:
+        for r, k in ((1, cfg.eval_budget_per_ray), (1, 192),
+                     *((r, 192) for r in TERM_ROUNDS)):
+            tr.cfg = dataclasses.replace(cfg, eval_budget_per_ray=k)
+            tr.eval_opts = dataclasses.replace(
+                opts, budget_per_ray=k, term_rounds=r,
+                term_budget_fracs=(1.0,) * r if r > 1 else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            white, _ = tr.render_image(pose, h, h, bg_color=1.0)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            stats = tr.render_stats[-1]
+            black, _ = tr.render_image(pose, h, h, bg_color=0.0)
+            out[r, k] = (white, 1.0 - (white - black).mean(-1), sec,
+                         stats["samples"], stats["buckets"])
+    finally:
+        tr.cfg, tr.eval_opts = cfg, opts
+    return out
+
+
+def blender_phase(dev, ws, smi):
+    """Phase 22: real-scene loading and the rest of main_nerf's options on
+    the card. (a) a Blender tree at nerf_synthetic's layout, RGBA, and an
+    RGB copy on white; (b) its load, through cv2 where it imports and
+    through the zlib reader; (c) main_nerf on it without and with
+    --error_map (random backgrounds); (d) on the RGB copy with and without
+    --bg_radius, and a .pth round trip of the background net; (e) term_rounds 2 and 4 against 1
+    on test view 0; (f) a CLIP-guided step, or the CLI's named exit where
+    transformers does not import. The CLI runs load with cv2 hidden. ->
+    (K1 forward launches, backward launches, K1 forward max abs error
+    against plain)."""
+    from seal3d_tpu_torch.data import provider
+
+    print(f"[blender] card: {smi}")
+    root = os.path.join(ws, "blender_scene")
+    rgb_root = os.path.join(ws, "blender_scene_rgb")
+    t0 = time.perf_counter()
+    written = write_blender_tree(dev, root, rgb_root)
+    filters = png_filter_rows(os.path.join(root, "train", "r_0.png"))
+    print(f"[blender] (a) wrote {sum(BLENDER_VIEWS.values())} views at "
+          f"{BLENDER_HW}x{BLENDER_HW} ({BLENDER_VIEWS}; nerf_synthetic has "
+          f"100 / 100 / 200), RGBA and an RGB copy on white, in "
+          f"{time.perf_counter() - t0:.2f} s; rows of train/r_0.png by PNG "
+          f"filter type 0-4: {filters}")
+
+    # (b) the loader as the CLI calls it; where cv2 imports, also without
+    # it (the reader that runs on a machine with no cv2)
+    poses = np.concatenate([written["train"][0], written["val"][0]])
+    images = np.concatenate([written["train"][1], written["val"][1]])
+    cv2 = provider.cv2
+    print(f"[blender] (b) cv2 " + ("does not import here" if cv2 is None else
+                                   f"{cv2.__version__} imports here; the "
+                                   f"CLI runs below hide it"))
+    for name, mod in ([("cv2", cv2)] if cv2 is not None else []) + [
+            ("read_png", None)]:
+        provider.cv2 = mod
+        try:
+            t0 = time.perf_counter()
+            ds = provider.NeRFDataset.load(root, split="trainval", scale=1.0)
+            load_s = time.perf_counter() - t0
+        finally:
+            provider.cv2 = cv2
+        same = (ds.images.shape == images.shape
+                and np.array_equal(ds.images, images))
+        pose_err = float(np.abs(ds.poses - poses).max())
+        print(f"[blender] (b) NeRFDataset.load trainval ({len(ds)} views) "
+              f"through {name}: {load_s:.2f} s "
+              f"({load_s / len(ds) * 1e3:.1f} ms a view); images "
+              f"bit-identical to the written ones: {same}; poses max abs "
+              f"diff {pose_err:.2e}")
+        check(same, f"{name}: the loaded images differ from the written ones")
+        check(pose_err <= 1e-5, f"{name}: loaded poses differ by {pose_err}")
+        del ds
+    del written, images
+    provider.cv2 = None
+    try:
+        return blender_runs(dev, ws, root, rgb_root)
+    finally:
+        provider.cv2 = cv2
+
+
+def blender_runs(dev, ws, root, rgb_root):
+    """Phase 22 (c)-(f) on the RGBA tree under root and its RGB copy under
+    rgb_root -> (K1 forward launches, backward launches, K1 forward max abs
+    error against plain)."""
+    from seal3d_tpu_torch import main_nerf
+    from seal3d_tpu_torch.data.provider import NeRFDataset
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.ops.raymarch import sph_from_ray
+    from seal3d_tpu_torch.train.checkpoint import (export_torch_ngp,
+                                                   flatten_tree,
+                                                   import_torch_ngp, map_tree)
+
+    recipe = ["-O", "--bound", "1.0", "--scale", "1.0", "--dt_gamma", "0",
+              "--min_near", "0.05", "--max_steps", "512", "--iters",
+              str(TRAIN_STEPS), "--device", "cuda"]
+    argv = [root] + recipe
+    launches = np.zeros(2, np.int64)
+    # (c) without and with the error map, on random backgrounds
+    tr_c, *n = blender_cli(argv + ["--workspace", os.path.join(ws, "bl_c")],
+                           "plain")
+    launches += n
+    tr_e, *n = blender_cli(argv + ["--error_map", "--workspace",
+                                   os.path.join(ws, "bl_em")], "error_map")
+    launches += n
+    emap = tr_e.state.error_map
+    moved = float((emap != 0.1).float().mean())
+    print(f"[blender error_map] map {tuple(emap.shape)}: {moved:.4f} of the "
+          f"cells moved off 0.1; mean {float(emap.mean()):.5f}")
+    check(moved > 0, "the error map never moved")
+    with capture_k1(first_only=True) as seen:      # compared, not counted
+        tr_e.train_step()
+    err = k1_case_vs_plain(dict(seen[0], name="an error-map train step"),
+                           "[blender]")
+    del tr_e
+
+    # (d) the background net on the RGB copy (the net paints the pixels
+    # that RGBA's random backgrounds would fill), gated on its PSNR cost
+    # against the plain field on the same copy
+    argv_d = [rgb_root] + recipe
+    tr_p, *n = blender_cli(argv_d + ["--workspace",
+                                     os.path.join(ws, "bl_rgb")], "rgb")
+    launches += n
+    psnr_p = tr_p.eval_history[-1]["psnr"]
+    del tr_p
+    tr_d, *n = blender_cli(argv_d + ["--bg_radius", str(BG_RADIUS),
+                                     "--workspace", os.path.join(ws, "bl_bg")],
+                           "bg", min_psnr=0.0)
+    launches += n
+    gap = psnr_p - tr_d.eval_history[-1]["psnr"]
+    print(f"[blender bg] val PSNR {tr_d.eval_history[-1]['psnr']:.2f} dB "
+          f"with the net against {psnr_p:.2f} without: it costs {gap:.2f} "
+          f"dB (the JAX package's cost on this tree: {BG_GAP_REF_DB} dB; "
+          f"gate: at most {BG_GAP_TOL_DB} dB more)")
+    check(gap <= BG_GAP_REF_DB + BG_GAP_TOL_DB,
+          f"the background net costs {gap:.2f} dB, the JAX package's "
+          f"{BG_GAP_REF_DB}")
+    # the .pth round trip: exported in the halo layout as it is (the
+    # reference's native layout keeps too few rows of the coarse levels,
+    # which wrap indexing reads past the native level size) and imported
+    # as `--ckpt x.pth` does
+    path = os.path.join(ws, "bl_bg", "ngp.pth")
+    export_torch_ngp(path, tr_d.state.params)
+    fresh = map_tree(ngp.init(tr_d.fcfg,
+                              generator=torch.Generator().manual_seed(7)),
+                     lambda _, t: t.to(dev))
+    loaded = import_torch_ngp(path, fresh, grid_cfg=tr_d.fcfg.grid)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.rand((2**16, 3), device=dev, generator=gen) * 2 - 1
+    d = torch.nn.functional.normalize(
+        torch.randn((2**16, 3), device=dev, generator=gen), dim=-1)
+    sph = sph_from_ray(x, d, BG_RADIUS)
+    with torch.no_grad():
+        outs = [(*ngp.apply(p, tr_d.fcfg, x, d),
+                 ngp.background(p, tr_d.fcfg, sph, d))
+                for p in (tr_d.state.params, loaded)]
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    keys = [k for k, _ in flatten_tree(loaded) if "bg" in k]
+    native = os.path.join(ws, "bl_bg", "ngp_native.pth")
+    export_torch_ngp(native, tr_d.state.params, grid_cfg=tr_d.fcfg.grid)
+    lossy = import_torch_ngp(native, fresh, grid_cfg=tr_d.fcfg.grid)
+    lost = int((lossy["encoder"] != tr_d.state.params["encoder"])
+               .any(-1).sum())
+    print(f"[blender bg] .pth round trip ({os.path.getsize(path) / 2**20:.1f}"
+          f" MiB, leaves {keys}): apply and background on 2^16 points "
+          f"{'bit-identical' if same else 'DIFFER'}; through the native "
+          f"layout {lost} rows of the encoder table change (coarse levels)")
+    check(same, "the .pth round trip changed apply or background")
+    del tr_d, loaded, fresh, lossy
+
+    # (e) transmittance-terminated rounds on (c)'s state
+    pose = NeRFDataset.load(root, split="test", scale=1.0).poses[0]
+    renders, *n = k1_counted(lambda: term_rounds_renders(tr_c, pose))
+    launches += n
+    for (r, k), (_, _, sec, samples, buckets) in renders.items():
+        print(f"[blender rounds] test view 0 at {BLENDER_HW}x{BLENDER_HW}, "
+              f"{k} samples a ray, term_rounds {r}: {sec:.3f} s, {samples} "
+              f"field samples, chunks by bucket {buckets}")
+    img1, w1 = renders[1, 192][:2]
+    for r in TERM_ROUNDS:
+        img, wsum = renders[r, 192][:2]
+        diff = (img - img1).abs()
+        mean, out = float(diff.mean()), float((diff > 2e-2).float().mean())
+        werr = float((wsum - w1).abs().mean())
+        print(f"[blender rounds] term_rounds {r} against 1 at 192: mean "
+              f"|d image| {mean:.2e}, share of values off by > 2e-2 "
+              f"{out:.2e}, mean |d weights_sum| {werr:.2e}")
+        check(mean < 1e-3 and out < 2e-3 and werr < 1e-3,
+              f"term_rounds {r} differs from one round: {mean}, {out}, "
+              f"{werr}")
+    del tr_c, renders
+
+    # (f) CLIP guidance: one guided step where transformers imports
+    try:
+        import transformers  # noqa: F401
+        why = None
+    except ImportError as e:
+        why = str(e)
+    argv_f = ["synthetic", "-O", "--bound", "1.0", "--dt_gamma", "0",
+              "--min_near", "0.05", "--max_steps", "512", "--iters", "1",
+              "--H", "64", "--W", "64", "--device", "cuda", "--rand_pose", "0",
+              "--clip_text", "a red chair", "--clip_random_init",
+              "--workspace", os.path.join(ws, "bl_clip")]
+    if why is None:
+        tr, *n = k1_counted(lambda: main_nerf.main(argv_f))
+        launches += n
+        loss = tr.history[0]["loss"]
+        init = dict(flatten_tree(ngp.init(
+            tr.fcfg, generator=torch.Generator().manual_seed(0))))
+        moved = [k for k, v in flatten_tree(tr.state.params)
+                 if not torch.equal(v.cpu(), init[k])]
+        print(f"[blender clip] one guided step (random-init CLIP): loss "
+              f"{loss:.5f}, leaves moved {len(moved)}")
+        check(np.isfinite(loss) and moved, "the guided step did nothing")
+    else:
+        try:
+            main_nerf.main(argv_f)
+            msg = ""
+        except SystemExit as e:
+            msg = str(e)
+        print(f"[blender clip] the guided step was not run: transformers "
+              f"does not import here ({why}); the CLI exits with: {msg!r}")
+        check("--clip_text needs" in msg, "the CLI did not exit with the "
+                                          "named error")
+    return int(launches[0]), int(launches[1]), err
 
 
 def hash_kernels_phase(dev):
@@ -2391,6 +2781,7 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
                                                   halo_encode_bwd_plain,
                                                   halo_encode_levels,
                                                   halo_encode_plain)
+    from seal3d_tpu_torch.ops.hashgrid import corner_indices_weights
 
     cfg = step_case["cfg"]
     levels, t_rows = cfg.num_levels, 2**cfg.log2_hashmap_size
@@ -2470,6 +2861,19 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
             if g is not None and case is cases[0]:
                 plain_ms = busy_ms(lambda: halo_encode_bwd_plain(
                     g, x, v, cfg, n))
+                # the backward's function as one PyTorch call: index_add_
+                # of the step's corner rows (g * w, invalid rows zero)
+                keys, w = corner_indices_weights(x, cfg)
+                gv = g if v is None else g * v[:, None]
+                contrib = (gv.reshape(m, levels, 1, f)
+                           * w[..., None]).reshape(-1, f)
+                keys = keys.reshape(-1)
+                lib_ms = time_device_ms(lambda: torch.zeros(
+                    (n, f), device=dev).index_add_(0, keys, contrib))
+                del keys, w, contrib
+                print(f"[k1 cases] {case['name']}: the backward's scatter as "
+                      f"index_add_ of its {m * levels * 8} corner rows: "
+                      f"{lib_ms:.4f} ms of device time")
         print(f"[k1 cases] {case['name']}: M={m} ({n_valid} valid) L={levels}"
               f" F={f}; tree fwd max_abs_err {err_f:.3e}"
               + ("" if g is None else
@@ -2495,7 +2899,7 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
                         "ms": times})
         if case is cases[0]:
             bwd_row.update(
-                ms=times["tree"]["bwd"], plain_ms=plain_ms,
+                ms=times["tree"]["bwd"], plain_ms=plain_ms, library_ms=lib_ms,
                 max_abs_err=max(bwd_row["max_abs_err"], err_b),
                 **encode_bound(m, n_valid, levels, f, n, valid_bytes=1))
     print("[k1 cases json] " + json.dumps(results))
@@ -2730,10 +3134,10 @@ def hash_measure_phase(dev, rows, trainers, ds800, baselines):
             rows[0].update(ms=times["tree"]["fwd"], plain_ms=plain_ms,
                            max_abs_err=max(rows[0]["max_abs_err"], err_f),
                            **bnd_f)
-        if case["backend"] == "bucket" and "real train step" in case["name"]:
+        if "real train step" in case["name"]:
             with torch.no_grad():
-                plain_ms = busy_ms(lambda: hash_encode_bwd_plain(g, x, cfg, n))
-                # K2's own function as one PyTorch call on this step's keys
+                # K2's (bucket) or K3 bwd's (pallas) own function as one
+                # PyTorch call on this step's keys
                 keys, w = corner_indices_weights(x, cfg)
                 contrib = (g.reshape(m, levels, 1, f)
                            * w[..., None]).reshape(-1, f)
@@ -2744,8 +3148,11 @@ def hash_measure_phase(dev, rows, trainers, ds800, baselines):
                     lambda: torch.zeros((n, f), device=dev))
                 del keys, w, contrib
             print(f"[hash cases]   the same scatter as index_add_: "
-                  f"{lib_ms:.3f} ms; the zero fill of the [{n}, {f}] "
-                  f"gradient alone: {zero_ms:.4f} ms")
+                  f"{lib_ms:.3f} ms of device time; the zero fill of the "
+                  f"[{n}, {f}] gradient alone: {zero_ms:.4f} ms")
+        if case["backend"] == "bucket" and "real train step" in case["name"]:
+            with torch.no_grad():
+                plain_ms = busy_ms(lambda: hash_encode_bwd_plain(g, x, cfg, n))
             rows[1].update(ms=times["tree"]["bwd"], plain_ms=plain_ms,
                            library_ms=lib_ms,
                            max_abs_err=max(rows[1]["max_abs_err"], err_b),

@@ -1,8 +1,8 @@
 """seal3d_tpu_torch — the PyTorch/CUDA port of seal3d_tpu for one NVIDIA H100.
 
 The JAX package `seal3d_tpu` stays the reference; this package mirrors its
-module names (ops/, models/, render/, data/, train/) so each counterpart is
-easy to find, and never imports it or JAX. Plain tensor code is PyTorch; each
+module names (ops/, models/, render/, data/, train/, utils/) so each
+counterpart is easy to find, and never imports it or JAX. Plain tensor code is PyTorch; each
 Pallas kernel of the ported path is a hand-written Hopper kernel under
 `csrc/`, built with nvcc at first use (runtime/build.py) and bound with
 ctypes. On a CPU tensor a kernel wrapper runs the kernel's plain PyTorch

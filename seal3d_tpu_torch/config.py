@@ -72,24 +72,17 @@ def common_parser(desc: str) -> argparse.ArgumentParser:
 
 
 def refuse_unported(args):
-    """Raise NotImplementedError, naming the ROADMAP.md item, for the CLI
-    options whose code is not ported yet (--gui; --error_map, --clip_text
-    and --rand_pose), in every CLI of the port alike; raise
-    RuntimeError where the run asks for the card (the default) and there is
-    none."""
+    """Raise NotImplementedError, naming the ROADMAP.md item, for the one
+    CLI option whose code is not ported yet (--gui), in every CLI of the
+    port alike; raise RuntimeError where the run asks for the card (the
+    default) and there is none."""
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         raise RuntimeError("no CUDA device (pass --device cpu to run the "
                            "plain PyTorch versions on the CPU)")
-    item = None
     if args.gui:
-        item = ("--gui", "Other backends and families")
-    elif (args.error_map or getattr(args, "clip_text", "")
-          or getattr(args, "rand_pose", -1) >= 0):
-        item = ("--error_map, --clip_text and --rand_pose", "Train step")
-    if item:
-        raise NotImplementedError(f"{item[0]}: not ported yet (ROADMAP.md "
-                                  f"Queue 1, '{item[1]}')")
+        raise NotImplementedError("--gui: not ported yet (ROADMAP.md Queue 1,"
+                                  " 'Other backends and families')")
 
 
 def build_options(args) -> RenderOptions:

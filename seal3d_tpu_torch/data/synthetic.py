@@ -83,14 +83,14 @@ class SyntheticScene:
 
     @torch.no_grad()
     def render_view(self, pose, intrinsics, h: int, w: int, chunk: int = 16384,
-                    device=None):
+                    device=None, bg: float = 1.0):
         pose = torch.as_tensor(pose, dtype=torch.float32, device=device)
         intr = torch.as_tensor(intrinsics, dtype=torch.float32, device=device)
         rays = get_full_rays(pose, intr, h, w)
         imgs, deps = [], []
         for i in range(0, h * w, chunk):
             img, dep = self.render_rays(rays["rays_o"][i:i + chunk],
-                                        rays["rays_d"][i:i + chunk])
+                                        rays["rays_d"][i:i + chunk], bg=bg)
             imgs.append(img)
             deps.append(dep)
         return torch.cat(imgs).reshape(h, w, 3), torch.cat(deps).reshape(h, w)

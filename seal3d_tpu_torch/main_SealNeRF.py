@@ -16,8 +16,9 @@ of loading one. The CLI's defaults `--bound 2.0 --dt_gamma 1/128` edit a
 two-cascade field (train it at `--lr 3e-3`, as main_nerf); with
 `--dense_render` the teacher trains and renders through the dense oracle
 while the student keeps the occupancy-grid path, as in the reference.
-`--gui` raises NotImplementedError naming its ROADMAP.md item, as do
-`--error_map`, `--clip_text` and `--rand_pose`.
+`--error_map` samples the teacher's and the student's train rays from
+their error maps. `--gui` raises NotImplementedError naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations

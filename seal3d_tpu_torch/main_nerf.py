@@ -21,13 +21,19 @@ field with the cone-stepped single-level march (the reference trains bound
 trains and renders through the dense oracle, with no occupancy grid.
 `--save_mesh` writes `<ws>/meshes/ngp.ply`: the EMA field's density on a
 `--mesh_resolution`^3 lattice, its iso-surface at min(10, the occupancy
-grid's mean density). The GUI, error-map sampling and CLIP-guided random
-poses are not ported yet (ROADMAP.md Queue 1) and raise
+grid's mean density). `--error_map` draws each step's pixels in proportion
+to a per-view error map; `--bg_radius R` (R > 0) adds the background net.
+`--clip_text T --rand_pose N` adds CLIP-guided steps on random orbit poses
+(every step at N = 0, one per N steps above), with a local transformers
+CLIP checkpoint (`--clip_model_path`) or a randomly initialised one
+(`--clip_random_init`); without a usable CLIP the CLI exits with the JAX
+CLI's message. The GUI is not ported yet (ROADMAP.md Queue 1) and raises
 NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 
@@ -40,14 +46,24 @@ from seal3d_tpu_torch.runtime.mesh_export import extract_geometry, save_mesh
 from seal3d_tpu_torch.train import checkpoint as ckpt_io
 from seal3d_tpu_torch.train.trainer import Trainer
 from seal3d_tpu_torch.train.video import write_test_outputs
+from seal3d_tpu_torch.utils.seeding import seed_everything
 
 
 def main(argv=None) -> Trainer:
     parser = common_parser("seal3d-tpu NGP NeRF (PyTorch port)")
-    parser.add_argument("--clip_text", type=str, default="")
-    parser.add_argument("--rand_pose", type=int, default=-1)
+    parser.add_argument("--clip_text", type=str, default="",
+                        help="text prompt for CLIP guidance")
+    parser.add_argument("--clip_model_path", type=str, default=None,
+                        help="local transformers CLIP checkpoint directory")
+    parser.add_argument("--clip_random_init", action="store_true",
+                        help="random-weight CLIP (the guidance math runs, "
+                             "its direction is meaningless)")
+    parser.add_argument("--rand_pose", type=int, default=-1,
+                        help="<0 off, 0 = every step a CLIP-guided random "
+                             "pose, >0 one guided step per N gt steps")
     args = parser.parse_args(argv)
     refuse_unported(args)
+    seed_everything(args.seed)
     backend, log2t, gridtype = grid_defaults(args)
     fcfg = NGPConfig(bound=args.bound, log2_hashmap_size=log2t,
                      grid_backend=backend, gridtype=gridtype,
@@ -57,8 +73,21 @@ def main(argv=None) -> Trainer:
     ds = load_dataset(args, "test" if args.test else "trainval",
                       device=args.device)
 
+    clip_loss = None
+    if args.clip_text and args.rand_pose >= 0:
+        from seal3d_tpu_torch.utils.clip_guidance import CLIPLoss
+
+        clip_loss = CLIPLoss(args.clip_text, model_path=args.clip_model_path,
+                             random_init=args.clip_random_init,
+                             device=args.device)
+        if not clip_loss.available:
+            raise SystemExit("--clip_text needs --clip_model_path (local "
+                             "weights) or --clip_random_init")
+        tcfg = dataclasses.replace(tcfg, rand_pose=args.rand_pose)
+
     tr = Trainer(ngp, fcfg, opts, tcfg, dataset=ds, seed=args.seed,
-                 device=args.device, name="ngp", use_dense=args.dense_render)
+                 device=args.device, name="ngp", use_dense=args.dense_render,
+                 clip_loss=clip_loss)
     tr.init_state()
     path = args.ckpt
     if path == "latest" and tcfg.workspace:

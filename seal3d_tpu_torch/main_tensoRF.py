@@ -15,8 +15,9 @@ split to `<ws>/results/`. `--cp` selects the CP decomposition; `--test
 --ckpt <file>` only renders, from an `.npz` of either package or a
 reference `.pth` (re-instantiated at its resolution). `--bg_radius > 0`
 trains the background net. Add `--device cpu` to run on the CPU (the
-plain versions). The GUI and error-map sampling are not ported yet
-(ROADMAP.md Queue 1) and raise NotImplementedError.
+plain versions). `--error_map` draws the train rays from per-view error
+maps. The GUI is not ported yet (ROADMAP.md Queue 1) and raises
+NotImplementedError.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ over a params dict with the reference's keys and shapes:
     {"encoder": [T_total, 2], "encoder_color": [T_total, 2],
      "sigma_net": [{"w": [in, out]}, ...], "color_net": [...]}
 
-The background net (bg_radius > 0) is not on the ported path.
+and, with bg_radius > 0, the background net: "encoder_bg" (a 2-D hash grid
+over sphere coordinates, L=4, F=2, T=2^19, on the plain `xla` gather) and
+"bg_net" (its features and SH of the view direction -> 2x64 MLP -> rgb).
 """
 
 from __future__ import annotations
@@ -55,14 +57,16 @@ class NGPConfig:
             shard_levels=self.grid_shard_levels,
         )
 
+    @cached_property
+    def grid_bg(self) -> HashGridConfig:
+        return HashGridConfig(num_levels=4, level_dim=2, base_resolution=16,
+                              log2_hashmap_size=19, desired_resolution=2048,
+                              input_dim=2)
+
 
 def init(cfg: NGPConfig, generator: Optional[torch.Generator] = None,
          device=None):
     """Random params with the reference's shapes and init distributions."""
-    if cfg.bg_radius > 0:
-        raise NotImplementedError(
-            "the background net is not ported yet: ROADMAP.md Queue 1, "
-            "'Other backends and families'")
     grid_dim = cfg.grid.output_dim
     sh_dim = sh_encode_dim(cfg.sh_degree)
     sigma_dims = ([grid_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1)
@@ -71,12 +75,18 @@ def init(cfg: NGPConfig, generator: Optional[torch.Generator] = None,
     color_dims = ([color_in] + [cfg.hidden_dim_color] * (cfg.num_layers_color - 1)
                   + [3])
     kw = dict(generator=generator, device=device)
-    return {
+    params = {
         "encoder": hashgrid_init(cfg.grid, **kw),
         "encoder_color": hashgrid_init(cfg.grid, **kw),
         "sigma_net": mlp_init(sigma_dims, **kw),
         "color_net": mlp_init(color_dims, **kw),
     }
+    if cfg.bg_radius > 0:
+        bg_dims = ([cfg.grid_bg.output_dim + sh_dim]
+                   + [cfg.hidden_dim_bg] * (cfg.num_layers_bg - 1) + [3])
+        params["encoder_bg"] = hashgrid_init(cfg.grid_bg, **kw)
+        params["bg_net"] = mlp_init(bg_dims, **kw)
+    return params
 
 
 def _normalize(x: torch.Tensor, bound: float) -> torch.Tensor:
@@ -115,3 +125,14 @@ def apply(params, cfg: NGPConfig, x: torch.Tensor, d: torch.Tensor,
     hc = torch.cat([d_enc, h[..., 1:], c_enc], dim=-1)
     rgb = torch.sigmoid(mlp_apply(params["color_net"], hc))
     return sigma, rgb
+
+
+def background(params, cfg: NGPConfig, sph: torch.Tensor,
+               d: torch.Tensor) -> torch.Tensor:
+    """sph [M, 2] sphere coordinates in [-1, 1], d [M, 3] unit dirs -> rgb
+    [M, 3] of the background net."""
+    h_enc = hashgrid_encode(params["encoder_bg"], (sph + 1.0) * 0.5,
+                            cfg.grid_bg)
+    d_enc = sh_encode(d, cfg.sh_degree)
+    h = mlp_apply(params["bg_net"], torch.cat([h_enc, d_enc], dim=-1))
+    return torch.sigmoid(h)

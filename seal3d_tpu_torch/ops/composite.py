@@ -51,14 +51,21 @@ def composite_flat(sigmas: torch.Tensor, rgbs: torch.Tensor,
                    deltas: torch.Tensor, ts: torch.Tensor,
                    ray_id: torch.Tensor, offsets: torch.Tensor,
                    valid: torch.Tensor, num_rays: int,
+                   tau_in: Optional[torch.Tensor] = None,
                    seg_mode: str = "scatter"):
     """Composite a flat ray-contiguous buffer.
 
     sigmas/deltas/ts [M], rgbs [M, 3], ray_id [M], offsets [N] segment
-    starts, valid [M]. seg_mode 'scatter' reduces per ray with index_add
-    (any sample order); 'scan' differences prefix sums at the segment
-    boundaries (needs the ray-contiguous offsets every march produces).
-    Returns dict(weights [M], weights_sum [N], depth [N], image [N, 3]).
+    starts, valid [M]. tau_in [N]: each ray's optical depth from earlier
+    marching rounds (the transmittance-terminated rounds of render_rays),
+    which scales its weights by exp(-tau_in); the result then carries
+    `tau_out` [N] = tau_in + this buffer's optical depth, so rounds chain
+    into the composite of the concatenated samples. seg_mode 'scatter'
+    reduces per ray with index_add (any sample order); 'scan' differences
+    prefix sums at the segment boundaries (needs the ray-contiguous offsets
+    every march produces).
+    Returns dict(weights [M], weights_sum [N], depth [N], image [N, 3]
+    [, tau_out [N]]).
     """
     m = sigmas.shape[0]
     sdelta = torch.where(valid, sigmas * deltas, 0.0)
@@ -68,6 +75,8 @@ def composite_flat(sigmas: torch.Tensor, rgbs: torch.Tensor,
     # exclusive in-segment optical depth: inclusive prefix difference minus
     # the sample's own sdelta, plus the segment start's own sdelta
     tau = ((cum - first) - sdelta.to(torch.float64) + sd_first).to(torch.float32)
+    if tau_in is not None:
+        tau = tau + tau_in[ray_id]
     alpha = 1.0 - torch.exp(-sdelta)
     weights = torch.where(valid, torch.exp(-tau) * alpha, 0.0)
     rgb_m = torch.where(valid[:, None], rgbs, 0.0)
@@ -79,9 +88,16 @@ def composite_flat(sigmas: torch.Tensor, rgbs: torch.Tensor,
         ends = torch.cat([offsets[1:], offsets.new_full((1,), m)])
         seg = _segment_sums(torch.cumsum(chan.to(torch.float64), dim=1),
                             offsets, ends).to(torch.float32)
+        if tau_in is not None:     # the optical depth's prefix is cum
+            tau_seg = _segment_sums(cum[None], offsets, ends)[0]
     elif seg_mode == "scatter":
         seg = chan.new_zeros((5, num_rays)).index_add_(1, ray_id, chan)
+        if tau_in is not None:
+            tau_seg = sdelta.new_zeros(num_rays).index_add_(0, ray_id, sdelta)
     else:
         raise ValueError(f"unknown seg_mode {seg_mode!r}")
-    return {"weights": weights, "weights_sum": seg[0], "depth": seg[1],
-            "image": seg[2:5].t()}
+    out = {"weights": weights, "weights_sum": seg[0], "depth": seg[1],
+           "image": seg[2:5].t()}
+    if tau_in is not None:
+        out["tau_out"] = tau_in + tau_seg.to(torch.float32)
+    return out

@@ -6,11 +6,12 @@ composites them. Its branches, as in the reference: the packed flat branch
 (flat_frac < 1) with the two-level march (the -O eval and full-image point;
 with `tl_kernel` its group plan comes from the ladder kernel K4)
 or the single-level march (the -O train point once the adaptive budget has
-picked a bucket, and every eval at bound > 1), and the [N, K] grid branch
+picked a bucket, and every eval at bound > 1), its transmittance-terminated
+rounds (term_rounds > 1, on either march), and the [N, K] grid branch
 (flat_frac None: the train steps before the first budget retune). The
-transmittance-terminated rounds and the legacy flat path raise
-NotImplementedError. `render_rays_dense` is the dense oracle: stratified
-samples, then importance samples from their weights (`--dense_render`).
+legacy flat path raises NotImplementedError. `render_rays_dense` is the
+dense oracle: stratified samples, then importance samples from their
+weights (`--dense_render`).
 """
 
 from __future__ import annotations
@@ -25,11 +26,14 @@ from torch.profiler import record_function
 
 from seal3d_tpu_torch.ops.composite import composite_dense, composite_flat
 from seal3d_tpu_torch.ops.raymarch import (SQRT3, MarchedRays,
-                                           march_rays_flat,
+                                           compact_flat_direct, group_plan,
+                                           march_candidates, march_rays_flat,
                                            march_rays_flat_2level,
                                            march_rays_flat_2level_kernel,
                                            march_rays_grid,
-                                           near_far_from_aabb, sph_from_ray)
+                                           near_far_from_aabb,
+                                           pack_groups_expand_fine,
+                                           sph_from_ray)
 
 
 @dataclass(frozen=True)
@@ -91,24 +95,12 @@ class RenderOptions:
         return (-b, -b, -b, b, b, b)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1, "
-                               f"'{item}'")
-
-
-def _check_background(field, opts: RenderOptions):
-    """bg_radius > 0 needs a field with a background net (TensoRF's); NGP's
-    is not ported."""
-    if opts.bg_radius > 0 and getattr(field, "background", None) is None:
-        raise _not_ported("the background net of this field",
-                          "Other backends and families")
-
-
 def _background(field, params, cfg, opts: RenderOptions, rays_o, rays_d,
                 bg_color):
     """What shows behind the samples: the field's background net at each
-    ray's far point on the sphere of radius bg_radius, else bg_color."""
-    if opts.bg_radius > 0:
+    ray's far point on the sphere of radius bg_radius, where the field has
+    one, else bg_color."""
+    if opts.bg_radius > 0 and getattr(field, "background", None) is not None:
         sph = sph_from_ray(rays_o, rays_d, opts.bg_radius)
         return field.background(params, cfg, sph, rays_d)
     return bg_color
@@ -119,6 +111,97 @@ def flat_budget(n: int, opts: RenderOptions) -> int:
     as in the reference)."""
     q = 128
     return max(int(round(n * opts.budget_per_ray * opts.flat_frac / q)) * q, q)
+
+
+def round_budget_fracs(rounds: int) -> tuple:
+    """Default per-round budget fractions of the single-round budget:
+    geometric halving scaled to a total of 0.8 (the first round holds most
+    of the tightened ladder's valid samples; termination thins the rest)."""
+    raw = [0.5**r for r in range(rounds)]
+    return tuple(0.8 * f / sum(raw) for f in raw)
+
+
+def _rounds_ok(opts: RenderOptions) -> bool:
+    """term_rounds applies on the packed flat branch when the candidate
+    ladder divides into the rounds; otherwise one round renders."""
+    return (opts.term_rounds > 1 and opts.flat_frac is not None
+            and opts.flat_frac < 1.0
+            and opts.num_candidates % opts.term_rounds == 0)
+
+
+def _render_rounds(params, field, cfg, bitfield, rays_o, rays_d,
+                   opts: RenderOptions, jitter, aabb):
+    """Transmittance-terminated rounds (term_rounds > 1): the candidate
+    ladder is built once; round r packs the valid samples of its column
+    slice on rays still alive (optical depth below -log(term_thresh)) into
+    its own budget, queries the field and composites them after the optical
+    depth of the rounds before (composite_flat's tau_in / tau_out). Equal
+    to the single-pass composite of the concatenated stream but for the
+    samples of dead rays, whose weights are already below term_thresh.
+    On the two-level march (where two_level_ok and the group columns divide
+    into the rounds) level 1 runs once and each round packs, expands and
+    fine-tests only the alive kept groups of its slice.
+    -> (dict(image, depth, weights_sum), num_samples)."""
+    n, k, rounds = rays_o.shape[0], opts.budget_per_ray, opts.term_rounds
+    c = opts.num_candidates
+    fracs = opts.term_budget_fracs or round_budget_fracs(rounds)
+    if len(fracs) != rounds:
+        raise ValueError(f"term_budget_fracs {fracs} has not {rounds} entries")
+    base = n * k * opts.flat_frac
+    tau_max = -math.log(opts.term_thresh)
+    g = opts.tl_group
+    two_level = opts.two_level_ok(k) and (c // g) % rounds == 0
+    if two_level:
+        plan = group_plan(rays_o, rays_d, bitfield, bound=opts.bound,
+                          cascades=opts.cascades, max_steps=opts.max_steps,
+                          k=k, num_candidates=c, group=g, perturb=jitter,
+                          min_near=opts.min_near, aabb=aabb,
+                          coarse_steps=opts.coarse_steps, kg=opts.tl_kg,
+                          pool=opts.tl_pool)
+        cs = c // g // rounds          # group columns a round
+    else:
+        ts, dts, valid = march_candidates(
+            rays_o, rays_d, bitfield, opts.bound, opts.cascades,
+            opts.dt_gamma, opts.max_steps, c, perturb=jitter,
+            min_near=opts.min_near, aabb=aabb, occ_stride=opts.occ_stride,
+            coarse_steps=opts.coarse_steps)
+        cs = c // rounds               # candidate columns a round
+        k_r = max(-(-k // rounds), 1)
+    tau = rays_o.new_zeros(n)
+    image = rays_o.new_zeros((n, 3))
+    depth = rays_o.new_zeros(n)
+    wsum = rays_o.new_zeros(n)
+    num_samples = torch.zeros((), dtype=torch.int64, device=rays_o.device)
+    for r in range(rounds):
+        budget = max(int(round(base * fracs[r] / 128)) * 128, 128)
+        sl = slice(r * cs, (r + 1) * cs)
+        alive = (tau < tau_max)[:, None]
+        with record_function("render.march"):
+            if two_level:
+                budget_g = max(-(-int(round(budget * opts.tl_over))
+                                 // (g * 16)) * 16, 16)
+                mf = pack_groups_expand_fine(
+                    plan, plan.keep[:, sl] & alive, r * cs, rays_o, rays_d,
+                    bitfield, opts.bound, opts.cascades, g, budget, budget_g,
+                    opts.occ_stride)
+            else:
+                mf = compact_flat_direct(ts[:, sl], dts[:, sl],
+                                         valid[:, sl] & alive, rays_o, rays_d,
+                                         k_r, budget)
+        with record_function("render.field"):
+            sigma, rgb = field.apply(params, cfg, mf.xyzs, mf.dirs,
+                                     valid=mf.valid)
+        with record_function("render.composite"):
+            sigma = torch.where(mf.valid, sigma * opts.density_scale, 0.0)
+            o = composite_flat(sigma, rgb, mf.deltas, mf.ts, mf.ray_id,
+                               mf.offsets, mf.valid, n, tau_in=tau,
+                               seg_mode=opts.composite_seg)
+        tau = o["tau_out"]
+        image = image + o["image"]
+        depth = depth + o["depth"]
+        wsum = wsum + o["weights_sum"]
+        num_samples = num_samples + mf.valid.sum()
+    return {"image": image, "depth": depth, "weights_sum": wsum}, num_samples
 
 
 def march_flat(rays_o, rays_d, bitfield, opts: RenderOptions,
@@ -173,23 +256,24 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
     jitter: [N] uniforms in [0, 1) that perturb each ray's march start (the
     reference's `perturb=True`, whose numbers it draws from `key`), or None.
     flat_frac None (or >= 1) selects the [N, K] grid branch, else the packed
-    flat branch (march_flat, which takes `ladder_tables`).
+    flat branch: in transmittance-terminated rounds where `_rounds_ok`
+    (`_render_rounds`), else in one (march_flat, which takes
+    `ladder_tables`).
     With bg_radius > 0 the field's background net paints what the samples
     leave uncovered (`_background`).
     Returns dict(image [N, 3], depth [N], weights_sum [N], num_samples []).
     """
     n = rays_o.shape[0]
     k = opts.budget_per_ray
-    _check_background(field, opts)
     if opts.compaction != "topk":
         raise NotImplementedError("the legacy 'flat' compaction is left out of "
                                   "the port (ROADMAP.md, 'Not to port')")
-    if opts.term_rounds > 1:
-        raise _not_ported("transmittance-terminated rounds",
-                          "Other backends and families")
     if aabb is None:
         aabb = torch.tensor(opts.aabb, dtype=torch.float32, device=rays_o.device)
-    if opts.flat_frac is not None and opts.flat_frac < 1.0:
+    if _rounds_ok(opts):
+        out, num_samples = _render_rounds(params, field, cfg, bitfield,
+                                          rays_o, rays_d, opts, jitter, aabb)
+    elif opts.flat_frac is not None and opts.flat_frac < 1.0:
         with record_function("render.march"):
             mf = march_flat(rays_o, rays_d, bitfield, opts, aabb, jitter,
                             ladder_tables)
@@ -265,7 +349,6 @@ def render_rays_dense(params, field, cfg, rays_o, rays_d, opts: RenderOptions,
     from `generator`. Without perturb: no jitter, midpoint uniforms.
     Returns dict(image [N, 3], depth [N], weights_sum [N], num_samples []:
     the samples composited; the reference returns no count)."""
-    _check_background(field, opts)
     n, dev = rays_o.shape[0], rays_o.device
     aabb = torch.tensor(opts.aabb, dtype=torch.float32, device=dev)
     nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, opts.min_near)

@@ -9,7 +9,8 @@ edited source or header never loads a stale library. Wrappers pass tensor
 pointers and the current stream as `c_void_p`; each C entry point returns
 `cudaGetLastError()` after its launch.
 
-Host libraries (`csrc/*.cpp`, the mesh extractor) take the `g++` path:
+Host libraries (`csrc/*.cpp`: the mesh extractor and the PNG scanline
+unfilter) take the `g++` path:
 `load_host_library(name)` compiles `csrc/<name>.cpp` into
 `_build/lib<name>_<digest>.so` at first use, named by a digest of the source
 and the flags in the same way.

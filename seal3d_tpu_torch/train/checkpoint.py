@@ -166,8 +166,10 @@ def _native(grid_cfg):
 def export_torch_ngp(path: str, params: dict, step: int = 0, grid_cfg=None):
     """Write NGP params as a reference-compatible `.pth`: `encoder.embeddings`
     and `encoder_color.embeddings` [rows, F] in the native level layout
-    (tables of a padded-level `grid_cfg` are re-packed), and the bias-free
-    Linears `{sigma,color}_net.{i}.weight` [out, in] (the params store
+    (tables of a padded-level `grid_cfg` are re-packed), the background
+    net's `encoder_bg.embeddings` (native already: its grid is on `xla`)
+    where the params have one, and the bias-free Linears
+    `{sigma,color,bg}_net.{i}.weight` [out, in] (the params store
     [in, out]). For 'halo' configs the exported entries keep wrap indexing,
     which only this package and the JAX one read."""
     native = _native(grid_cfg)
@@ -182,6 +184,8 @@ def export_torch_ngp(path: str, params: dict, step: int = 0, grid_cfg=None):
     for enc in ("encoder", "encoder_color"):
         if enc in params:
             sd[f"{enc}.embeddings"] = table(params[enc])
+    if "encoder_bg" in params:
+        sd["encoder_bg.embeddings"] = params["encoder_bg"].detach().cpu().clone()
     for net in ("sigma_net", "color_net", "bg_net"):
         for i, layer in enumerate(params.get(net, ())):
             sd[f"{net}.{i}.weight"] = layer["w"].detach().cpu().T.contiguous()
@@ -195,7 +199,8 @@ def import_torch_ngp(pth_path: str, params: dict, grid_cfg=None) -> dict:
     params tree `params` (devices and dtypes kept). Reference tables use the
     native level layout; pass `grid_cfg` (the HashGridConfig of `params`) so
     tables of a padded-level config are re-packed, their padding rows
-    zero-filled."""
+    zero-filled. The background net's `encoder_bg` and `bg_net` are read
+    where `params` has them."""
     ckpt = torch.load(pth_path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model", ckpt)
     out = map_tree(params, lambda _, t: t)      # a new tree, the same leaves
@@ -210,9 +215,10 @@ def import_torch_ngp(pth_path: str, params: dict, grid_cfg=None) -> dict:
         return like(v, ref)
 
     for k, v in sd.items():
-        for enc in ("encoder_color", "encoder"):
+        for enc in ("encoder_color", "encoder_bg", "encoder"):
             if k.endswith(f"{enc}.embeddings") and enc in out:
-                out[enc] = table(v, out[enc])
+                out[enc] = (like(v, out[enc]) if enc == "encoder_bg"
+                            else table(v, out[enc]))
                 break
         else:
             m = _TORCH_NGP_LAYER.search(k)

@@ -11,7 +11,12 @@ form for the two-level march, a candidate count for the single-level one),
 per-chunk flat_frac buckets and zero-demand chunk skipping; `evaluate`
 scores a split and keeps the best checkpoint. With `use_dense` the loss,
 `evaluate` and `render_image` go through the dense oracle
-(`render_rays_dense`) and the train loop keeps no occupancy grid.
+(`render_rays_dense`) and the train loop keeps no occupancy grid. With
+`error_map` the state carries a 128x128 error map per training view: a step
+draws its pixels in proportion to it and refreshes the cells it drew with
+an EMA of their per-ray error. With a CLIP loss and `rand_pose` >= 0,
+`clip_step` renders a random orbit pose and pulls it toward a text prompt
+(every step at 0, else one guided step per `rand_pose` steps).
 
 PyTorch runs eagerly, so nothing is jitted: the reference's per-bucket jit
 caches and blocked (scanned) steps have no counterpart, and the per-chunk
@@ -34,7 +39,10 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from seal3d_tpu_torch.data.rays import get_full_rays, get_rays
+from seal3d_tpu_torch.data.provider import rand_poses
+from seal3d_tpu_torch.data.rays import (ERROR_MAP_RES, error_map_cells,
+                                        error_map_inds, get_full_rays,
+                                        get_rays)
 from seal3d_tpu_torch.ops.ladder import pack_tables
 from seal3d_tpu_torch.ops.raymarch import (group_plan, ladder_plan_kernel,
                                            march_candidates, march_rays_grid,
@@ -47,6 +55,7 @@ from seal3d_tpu_torch.render.renderer import (RenderOptions, render_rays,
 from seal3d_tpu_torch.train import checkpoint as ckpt_io
 from seal3d_tpu_torch.train.metrics import PerceptualMeter, PSNRMeter
 from seal3d_tpu_torch.train.optim import Optimizer, apply_updates
+from seal3d_tpu_torch.utils.color import srgb_to_linear
 
 
 @dataclass
@@ -95,13 +104,15 @@ TIMING_WARMUP = 48
 
 class TrainState(NamedTuple):
     """Checkpointed state; field names and order give the reference's
-    `.npz` keys (its `error_map` field is not on the ported path)."""
+    `.npz` keys (`error_map`: [views, 128*128] with cfg.error_map, else
+    None and absent from the file)."""
 
     params: Any
     opt_state: Any
     ema_params: Any
     occ: OccupancyState
     step: torch.Tensor
+    error_map: Optional[torch.Tensor] = None
 
 
 class StepRandom(NamedTuple):
@@ -110,16 +121,31 @@ class StepRandom(NamedTuple):
     oracle splits its z jitter and importance uniforms off the last)."""
 
     img_idx: torch.Tensor         # [] int64 training view
-    inds: torch.Tensor            # [N] int64 flat pixel indices
+    inds: torch.Tensor            # [N] int64 flat pixel indices (uniform, or
+                                  # drawn from the view's error map)
     bg: Optional[torch.Tensor]    # [N, 3] random background, None = white
     jitter: Optional[torch.Tensor]  # [N] march-start jitter in [0, 1)
     z_jitter: Optional[torch.Tensor] = None  # [N, num_steps] dense oracle
     pdf_u: Optional[torch.Tensor] = None     # [N, upsample_steps] dense
 
 
-def _srgb_to_linear(x: torch.Tensor) -> torch.Tensor:
-    x = x.clamp(0.0, 1.0)
-    return torch.where(x < 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
+def refresh_error_map(error_map: torch.Tensor, img_idx: torch.Tensor,
+                      cells: torch.Tensor, per_ray: torch.Tensor):
+    """error_map [B, E] with view img_idx's cells set to 0.9 * old + 0.1 *
+    the per-ray error of the ray that drew them. Where several rays drew one
+    cell, the last of them sets it (the reference's scatter on the CPU); the
+    winners are chosen explicitly, so the card gives the same map."""
+    cur = error_map[img_idx]
+    n, e = cells.shape[0], cur.shape[0]
+    order = torch.arange(n, device=cells.device)
+    last = torch.full((e,), -1, dtype=order.dtype,
+                      device=cells.device).scatter_reduce_(0, cells, order,
+                                                           "amax")
+    # losers write into a dump slot past the row's end
+    dst = torch.where(last[cells] == order, cells, e)
+    new = torch.cat([cur, cur.new_zeros(1)]).scatter_(
+        0, dst, cur[cells] * 0.9 + 0.1 * per_ray)[:e]
+    return error_map.index_copy(0, img_idx.reshape(1), new[None])
 
 
 class _Clock:
@@ -149,14 +175,12 @@ class Trainer:
     def __init__(self, field_mod, field_cfg, opts: RenderOptions,
                  cfg: TrainConfig, dataset=None, seed: int = 0, device=None,
                  name: str = "ngp", use_dense: bool = False, reg_fn=None,
-                 optimizer=None):
+                 optimizer=None, clip_loss=None):
         """reg_fn: params -> [] tensor added to each step's loss (TensoRF's
         L1 density sparsity), or None; optimizer: an Optimizer-like object
-        (`init`, `update`), by default Adam over every leaf at cfg.lr."""
-        if cfg.error_map or cfg.rand_pose >= 0:
-            raise NotImplementedError(
-                "error-map ray sampling and CLIP-guided random poses are not "
-                "ported yet: ROADMAP.md Queue 1, 'Train step' (what stays)")
+        (`init`, `update`), by default Adam over every leaf at cfg.lr;
+        clip_loss: a prepared utils.clip_guidance.CLIPLoss for the guided
+        steps of cfg.rand_pose >= 0, or None (no guided step)."""
         if cfg.lr_net_scale != 1.0:
             raise NotImplementedError(
                 "a separate MLP learning rate (the D-NeRF family's) is not "
@@ -178,6 +202,8 @@ class Trainer:
         self.init_generator = torch.Generator().manual_seed(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.reg_fn = reg_fn
+        self.clip_loss = clip_loss
+        self._clip_acc = 0      # gt steps since the last guided step
         self.optimizer = optimizer or Optimizer(cfg.lr, cfg.max_steps)
         self.state: Optional[TrainState] = None
         self.dataset = None
@@ -235,21 +261,32 @@ class Trainer:
         if self.dataset is not None and not self.use_dense:
             occ = mark_untrained(occ, self._poses, self._intrinsics,
                                  self.opts.bound)
+        emap = None
+        if self.cfg.error_map and self.dataset is not None:
+            emap = torch.full((len(self.dataset), ERROR_MAP_RES**2), 0.1,
+                              dtype=torch.float32, device=self.device)
         self.state = TrainState(params=params,
                                 opt_state=self.optimizer.init(params),
                                 ema_params=ema, occ=occ,
                                 step=torch.zeros((), dtype=torch.int32,
-                                                 device=self.device))
+                                                 device=self.device),
+                                error_map=emap)
         return self.state
 
     # ------------------------------------------------------------ train step
 
     def draw_step_random(self) -> StepRandom:
-        """One step's random numbers from the trainer's device generator."""
+        """One step's random numbers from the trainer's device generator;
+        with an error map the pixels are drawn from the view's row of it."""
         n, gen, dev = self.cfg.num_rays, self.generator, self.device
         ds = self.dataset
         img_idx = torch.randint(0, len(ds), (), generator=gen, device=dev)
-        inds = torch.randint(0, ds.h * ds.w, (n,), generator=gen, device=dev)
+        emap = self.state.error_map
+        if emap is None:
+            inds = torch.randint(0, ds.h * ds.w, (n,), generator=gen,
+                                 device=dev)
+        else:
+            inds = error_map_inds(emap[img_idx], ds.h, ds.w, n, generator=gen)
         bg = None
         if self.cfg.random_bg and self._images.shape[-1] == 4:
             bg = torch.rand((n, 3), generator=gen, device=dev)
@@ -271,7 +308,7 @@ class Trainer:
         img = self._images[rand.img_idx].reshape(h * w, -1)
         gt = img[rand.inds].to(torch.float32) / 255.0
         if self.cfg.color_space == "linear":
-            gt = torch.cat([_srgb_to_linear(gt[:, :3]), gt[:, 3:]], -1)
+            gt = torch.cat([srgb_to_linear(gt[:, :3]), gt[:, 3:]], -1)
         bg = rand.bg
         if bg is None:  # RGB ground truth keeps a white background
             bg = torch.ones((n, 3), dtype=torch.float32, device=gt.device)
@@ -288,7 +325,8 @@ class Trainer:
 
     def loss_fn(self, params, occ: OccupancyState, batch: dict,
                 jitter: Optional[torch.Tensor]):
-        """(loss [], render dict) of one batch: the mean over rays of the
+        """(loss [], render dict with the detached `per_ray` loss) of one
+        batch: the mean over rays of the
         MSE over RGB plus, where the batch carries `gt_depth` (a
         teacher-proxied Seal dataset), the squared depth error, plus
         `reg_fn(params)` where the trainer has one. With
@@ -312,24 +350,43 @@ class Trainer:
         loss = per_ray.mean()
         if self.reg_fn is not None:
             loss = loss + self.reg_fn(params)
+        out["per_ray"] = per_ray.detach()
         return loss, out
+
+    @staticmethod
+    def _value_and_grads(params, fn):
+        """(fn's loss, gradient tree shaped like params, fn's aux) of
+        fn(params) -> (loss [], aux)."""
+        flat = ckpt_io.flatten_tree(params)
+        leaves = {k: v.detach().requires_grad_(True) for k, v in flat}
+        with record_function("step.forward"):
+            loss, aux = fn(ckpt_io.map_tree(params, lambda k, _: leaves[k]))
+        with record_function("step.backward"):
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+        return loss.detach(), ckpt_io.map_tree(params, lambda k, _: grads[k]), aux
 
     def loss_and_grads(self, params, occ: OccupancyState, batch: dict,
                        jitter: Optional[torch.Tensor]):
         """(loss, gradient tree shaped like params, render dict)."""
-        flat = ckpt_io.flatten_tree(params)
-        leaves = {k: v.detach().requires_grad_(True) for k, v in flat}
-        with record_function("step.forward"):
-            loss, out = self.loss_fn(
-                ckpt_io.map_tree(params, lambda k, _: leaves[k]), occ, batch,
-                jitter)
-        with record_function("step.backward"):
-            grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
-        return loss.detach(), ckpt_io.map_tree(params, lambda k, _: grads[k]), out
+        return self._value_and_grads(
+            params, lambda p: self.loss_fn(p, occ, batch, jitter))
+
+    @torch.no_grad()
+    def _apply_grads(self, st: TrainState, grads) -> TrainState:
+        """st after one optimizer update with grads, the EMA and step + 1."""
+        with record_function("step.update"):
+            updates, opt_state = self.optimizer.update(grads, st.opt_state)
+            params = apply_updates(st.params, updates)
+            d = self.cfg.ema_decay
+            ema = ckpt_io.map_trees(lambda e, p: e * d + p * (1.0 - d),
+                                    st.ema_params, params)
+        return st._replace(params=params, opt_state=opt_state,
+                           ema_params=ema, step=st.step + 1)
 
     def train_step(self, rand: Optional[StepRandom] = None) -> dict:
-        """One step: batch, loss, gradient, Adam, EMA, mean_count EMA.
+        """One step: batch, loss, gradient, Adam, EMA, mean_count EMA and,
+        with an error map, its refresh at the drawn cells.
         Returns device tensors {"loss", "num_samples"} (no host sync). Its
         stages are `step.*` ranges in a torch.profiler trace."""
         st = self.state
@@ -338,19 +395,51 @@ class Trainer:
             batch = self.sample_batch(rand)
         loss, grads, out = self.loss_and_grads(st.params, st.occ, batch,
                                                rand.jitter)
-        with torch.no_grad(), record_function("step.update"):
-            updates, opt_state = self.optimizer.update(grads, st.opt_state)
-            params = apply_updates(st.params, updates)
-            d = self.cfg.ema_decay
-            ema = ckpt_io.map_trees(lambda e, p: e * d + p * (1.0 - d),
-                                    st.ema_params, params)
+        st = self._apply_grads(st, grads)
+        with torch.no_grad():
             ns = out["num_samples"].to(torch.float32)
             mc = st.occ.mean_count
-            occ = st.occ._replace(
-                mean_count=torch.where(mc < 0, ns, mc * 0.9 + ns * 0.1))
-        self.state = TrainState(params=params, opt_state=opt_state,
-                                ema_params=ema, occ=occ, step=st.step + 1)
+            st = st._replace(occ=st.occ._replace(
+                mean_count=torch.where(mc < 0, ns, mc * 0.9 + ns * 0.1)))
+            if st.error_map is not None:
+                cells = error_map_cells(rand.inds, self.dataset.h,
+                                        self.dataset.w)
+                st = st._replace(error_map=refresh_error_map(
+                    st.error_map, rand.img_idx, cells, out["per_ray"]))
+        self.state = st
         return {"loss": loss, "num_samples": out["num_samples"]}
+
+    def clip_step(self) -> float:
+        """One CLIP-guided step: render a random orbit pose (radius
+        cfg.clip_pose_radius, polar angle 45-105 degrees, drawn from a numpy
+        generator seeded by the step) at cfg.clip_size^2 with the dataset's
+        focal length rescaled, through the [N, K] grid branch on a white
+        background, and take one optimizer step on the CLIP loss's gradient,
+        backpropagated through the render. Returns the CLIP loss."""
+        if self.clip_loss is None or not self.clip_loss.available:
+            raise RuntimeError("clip_step needs Trainer(clip_loss=) with a "
+                               "prepared CLIPLoss")
+        st, s = self.state, self.cfg.clip_size
+        rng = np.random.default_rng(int(st.step) * 2 + 1)
+        pose = rand_poses(rng, 1, radius=self.cfg.clip_pose_radius,
+                          theta_range=(45, 105))[0]
+        fx = float(self.dataset.intrinsics[0]) * (s / self.dataset.w)
+        intr = torch.tensor([fx, fx, s / 2, s / 2], device=self.device)
+        rays = get_full_rays(torch.as_tensor(pose, device=self.device), intr,
+                             s, s)
+        copts = dataclasses.replace(self.opts, flat_frac=None)
+
+        def clip_loss(params):
+            out = render_rays(params, self.field, self.fcfg, st.occ.bitfield,
+                              rays["rays_o"], rays["rays_d"], copts,
+                              bg_color=1.0,
+                              aabb=self._march_aabb(st.occ.occ_aabb))
+            return self.clip_loss.loss_torch(
+                out["image"].reshape(s, s, 3)), None
+
+        loss, grads, _ = self._value_and_grads(st.params, clip_loss)
+        self.state = self._apply_grads(st, grads)
+        return float(loss)
 
     # ------------------------------------------------------------ grid, loop
 
@@ -374,8 +463,10 @@ class Trainer:
               log_every: int = 500) -> dict:
         """Run `steps` train steps (default cfg.max_steps) with a grid update
         every update_grid_interval steps (none with use_dense: the dense
-        oracle reads no occupancy grid). The host reads the device only at
-        loop entry, at logged steps and at each adaptive-budget retune.
+        oracle reads no occupancy grid). With a CLIP loss, cfg.rand_pose 0
+        makes every step a guided `clip_step` and > 0 adds one after every
+        rand_pose steps. The host reads the device only at loop entry, at
+        logged steps, at each adaptive-budget retune and at guided steps.
         Fills `train_stats`: seconds of each grid update, and the wall time
         of the steps after the first TIMING_WARMUP (grid updates included).
         Returns the last logged {"loss": float}."""
@@ -400,8 +491,18 @@ class Trainer:
                     self._retune_budget()
             if i == TIMING_WARMUP + 1:
                 w0 = clock.mark()
-            metrics = self.train_step()
+            guided = self.clip_loss is not None and cfg.rand_pose >= 0
+            if guided and cfg.rand_pose == 0:
+                metrics = {"loss": self.clip_step()}
+            else:
+                metrics = self.train_step()
             step_i += 1
+            if guided and cfg.rand_pose > 0:
+                self._clip_acc += 1
+                while self._clip_acc >= cfg.rand_pose:
+                    self._clip_acc -= cfg.rand_pose
+                    self.clip_step()
+                    step_i += 1
             if (i - 1) % log_every == 0 or i == steps:
                 last = {"loss": float(metrics["loss"])}
                 self.history.append({"step": step_i, **last})

@@ -79,12 +79,36 @@ def write_test_outputs(
     return written
 
 
-def write_png(path: str, rgb: np.ndarray):
-    """[H, W, 3] uint8 -> an 8-bit RGB PNG file."""
-    h, w, _ = rgb.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          np.ascontiguousarray(rgb, np.uint8).reshape(h, -1)],
-                         axis=1).tobytes()  # filter byte 0 on every row
+def _filter_scanlines(px: np.ndarray, bpp: int) -> np.ndarray:
+    """[H, row] uint8 pixels -> [H, 1 + row] PNG scanlines, each row under
+    the filter (None, Sub, Up, Average or Paeth) whose bytes, read as signed,
+    have the least absolute sum: the PNG specification's heuristic."""
+    x = px.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    cands = (np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth])
+             & 0xFF).astype(np.uint8)                          # [5, H, row]
+    cost = np.abs(cands.view(np.int8).astype(np.int32)).sum(-1)
+    choice = cost.argmin(0)
+    rows = cands[choice, np.arange(px.shape[0])]
+    return np.concatenate([choice.astype(np.uint8)[:, None], rows], axis=1)
+
+
+def write_png(path: str, img: np.ndarray):
+    """[H, W] gray, or [H, W, C] RGB (C=3) or RGBA (C=4), uint8 -> an 8-bit
+    PNG file (adaptive scanline filters, zlib level 6)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    ctype = {1: 0, 3: 2, 4: 6}[c]
+    raw = _filter_scanlines(img.reshape(h, w * c), c).tobytes()
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
@@ -92,7 +116,8 @@ def write_png(path: str, rgb: np.ndarray):
 
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0,
+                                             0))
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 

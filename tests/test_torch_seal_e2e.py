@@ -23,7 +23,7 @@ import torch
 import test_torch_seal_cases as tool_cases
 from seal3d_tpu_torch import main_SealNeRF
 from seal3d_tpu_torch.config import (build_options, build_train_config,
-                                     common_parser)
+                                     common_parser, refuse_unported)
 from seal3d_tpu_torch.models import ngp as tngp
 from seal3d_tpu_torch.seal.renderer import hack_bitfield
 from seal3d_tpu_torch.train.checkpoint import flatten_tree
@@ -230,14 +230,16 @@ def test_cli_loads_the_latest_teacher_and_pretrains_only(tmp_path,
 
 
 def test_unported_options_raise(tmp_path, monkeypatch, capsys):
-    """The Seal CLI's off-path options (--gui, --error_map) name their
-    ROADMAP.md item before anything is trained; the card is the default
-    device. The options it refused before now run: the default bound 2 (two
-    cascades) with a brush edit and --save_mesh, and --dense_render with an
-    anchor edit on a teacher trained through the dense oracle."""
-    for extra in (["--gui"], ["--error_map"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main_SealNeRF.main(ARGV + extra)
+    """The Seal CLI's off-path option (--gui) names its ROADMAP.md item
+    before anything is trained; --error_map is ported and passes the
+    refusal; the card is the default device. The options it refused before
+    now run: the default bound 2 (two cascades) with a brush edit and
+    --save_mesh, and --dense_render with an anchor edit on a teacher trained
+    through the dense oracle."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main_SealNeRF.main(ARGV + ["--gui"])
+    refuse_unported(main_SealNeRF.add_seal_args(common_parser("t"))
+                    .parse_args(ARGV + ["--error_map"]))
     if not torch.cuda.is_available():
         argv = [a for a in ARGV if a not in ("--device", "cpu")]
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -135,8 +135,9 @@ def test_pretraining_losses_match_jax(students):
 def test_teacher_field_exposes_background():
     edit = tmap.build_mapper(EDIT)
     assert make_teacher_field(ttf, edit, None).background is ttf.background
+    # NGP has its background net too (bg_radius > 0), as in the JAX package
     from seal3d_tpu_torch.models import ngp as tngp
-    assert make_teacher_field(tngp, edit, None).background is None
+    assert make_teacher_field(tngp, edit, None).background is tngp.background
 
 
 def test_finetune_moves_aabb_as_jax_does(students):

@@ -114,11 +114,14 @@ def test_cli_trains_bucket_backend(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch, capsys):
-    for extra in (["--error_map"], ["--gui"], ["--rand_pose", "0"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main_nerf.main(ARGV + extra)
-    # bound > 1 (the CLI's default) and --dense_render are ported: both
-    # CLIs (one refusal list) take them
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main_nerf.main(ARGV + ["--gui"])
+    # --clip_text without a usable CLIP exits with the JAX CLI's message
+    with pytest.raises(SystemExit, match="--clip_random_init"):
+        main_nerf.main(ARGV + ["--clip_text", "a chair", "--rand_pose", "0"])
+    # bound > 1 (the CLI's default), --dense_render and --error_map are
+    # ported: both CLIs (one refusal list) take them
+    refuse_unported(common_parser("test").parse_args(ARGV + ["--error_map"]))
     for extra in (["--dense_render"], []):
         argv = ARGV + extra
         if not extra:
