@@ -203,8 +203,8 @@ Phases, each of which raises (exit code != 0) when it fails:
 21. TensoRF and Seal on it (it runs after phase 20; no kernel of the
    table lies on this path, and none is launched): (a) `python -m
    seal3d_tpu_torch.main_tensoRF synthetic -O --bound 1.0 --dt_gamma 0
-   --min_near 0.05 --max_steps 512 --iters 1500 --H 256 --W 256
-   --upsample_model_steps 300 500 700 900 1100` (VM at the CLI's full
+   --min_near 0.05 --max_steps 512 --iters 1200 --H 256 --W 256
+   --upsample_model_steps 250 450 650 850 1100` (VM at the CLI's full
    width, 128^3 -> 300^3 over five upsamples, the shrink at step 1000): ms
    per step by segment from CUDA events, with the factor shapes after each
    milestone and the shrunk aabb; launches and device-busy ms of a step at
@@ -219,7 +219,7 @@ Phases, each of which raises (exit code != 0) when it fails:
    step 150: val PSNR >= 2 dB above the untrained field's, and a `.pth`
    round trip whose `apply` is bit-identical; (c) `python -m
    seal3d_tpu_torch.main_SealTensoRF` with seal_config_bbox on (a)'s
-   `.npz` at phase 14's recipe (50 epochs, 500 steps, 256x256): the stages
+   `.npz` at 25 epochs and 300 steps, 256x256: the stages
    of timer.json, the student against the mapped teacher on 4 val views
    (>= 25 dB), the pixels the edit changes (> 0), the student's aabb drift.
 22. the rest of main_nerf (it runs right after phase 7): (a) a Blender
@@ -246,7 +246,35 @@ Phases, each of which raises (exit code != 0) when it fails:
    and field samples each way; (f) one --rand_pose 0 --clip_random_init
    guided step where transformers imports (finite loss, the params
    moved), else the CLI's named exit.
-The line before the last is the kernel table as JSON (eight kernels, each
+23. the three other families at their CLIs' full widths (it runs last):
+   (a) `python -m seal3d_tpu_torch.main_dnerf synthetic_dynamic -O --bound
+   1.0 --dt_gamma 0 --min_near 0.05 --max_steps 512 --H 256 --W 256
+   --num_views 48 --views_per_time 4 --time_multires 2 --deform_reg 1e-3
+   --iters 1500` (the 5x128 deform net, 16 levels F=2 at T=2^15 `wrap` on
+   K1, 64 time slices): ms a step with and without the time-grid updates
+   and s an update (8 slices), K1's launches equal to the field calls (one
+   a step, 32 an update, one a rendered chunk) and its backward once a
+   step, no other kernel; val PSNR at the first step and after the run
+   (>= 2 dB over the first and >= 18 dB); how far each deform-net layer
+   moved (> 0: through the L1 term alone); K1 launches a step, a view and
+   an update; a profiled step; K1 against its plain version on one more
+   step's warped samples (forward <= 1e-5, backward within BWD_RTOL) and
+   on a time-grid update's first chunk (<= 1e-5); (b) the same CLI with
+   `--grid_backend bucket` for 300 steps: the hash-encode launches equal to
+   the field calls, the loss falls, the deform net moves, and the
+   positions' gradient of one step's warped samples through the kernels on
+   the card against the CPU plain version (<= 1e-5 of its largest entry);
+   (c) `python -m seal3d_tpu_torch.main_CCNeRF synthetic -O --bound 1.0
+   --H 256 --W 256 --iters 1200` (300^3, the CLI's ranks): ms, launches and
+   busy ms a step, val PSNR (>= 2 dB over the untrained field and >= 20
+   dB), then `--test --compress 8 16 24 48` (its val PSNR >= 2 dB over the
+   untrained) and `--compose` of the run's checkpoint with itself (two
+   objects, 8 finite test views at 128x128); (d) `python -m
+   seal3d_tpu_torch.main_sdf synthetic --iters 600` (T=2^19, 16,384 points
+   a step): ms a step, MAE before and after (<= half), the 256^3 mesh's
+   vertices. (c) and (d) launch no kernel of the table.
+The line before the last is the kernel table as JSON (eight rows for the
+nine Pallas call sites: hash_encode_bwd is both K2 and K3's backward; each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
 computes the same function, that call's time; a row whose own time is
@@ -544,6 +572,15 @@ def main(argv=None):
         torch.cuda.empty_cache()
         tensorf_phase(dev, os.path.join(ws, "tensorf"))
         lap("21")
+        torch.cuda.empty_cache()
+        fwd, bwd, fwd_h, bwd_h, err = families_phase(
+            dev, os.path.join(ws, "families"))
+        k1_fwd["launches"] += fwd
+        k1_bwd["launches"] += bwd
+        k1_fwd["max_abs_err"] = max(k1_fwd["max_abs_err"], err)
+        hash_rows[0]["launches"] += fwd_h
+        hash_rows[1]["launches"] += bwd_h
+        lap("23")
     print(f"[time] wall seconds by phase: {json.dumps(seconds)}")
     kernels = [k1_fwd, k1_bwd, k1_tp, *hash_rows, k4, *k5_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2382,8 +2419,12 @@ def mesh_phase(dev, ws, teacher_ckpt, student):
     return total
 
 
-TF_STEPS = 1500                             # phase 21a's iterations
-TF_UPSAMPLE = (300, 500, 700, 900, 1100)    # 128^3 -> 300^3, log-spaced
+# phase 21a's iterations and upsamples (128^3 -> 300^3, log-spaced; the last
+# after the shrink at 1000, so the final shape is n_to_reso of the shrunk
+# box), cut from 1500 / (300, 500, 700, 900, 1100) when phase 23 came
+TF_STEPS = 1200
+TF_UPSAMPLE = (250, 450, 650, 850, 1100)
+TF_SEAL_EPOCHS, TF_SEAL_STEPS = 25, 300     # phase 21c, cut from 50 / 500
 TF_VOXELS = 300**3                          # the CLI's --resolution1 cubed
 MIN_TF_PSNR = 20.0      # phase 21a, 4 val views at 256x256
 CP_STEPS, CP_UPSAMPLE, MIN_CP_GAIN_DB = 300, 150, 2.0   # phase 21b
@@ -2414,9 +2455,7 @@ def tensorf_phase(dev, ws):
     from seal3d_tpu_torch.train import checkpoint as ckpt_io
     from seal3d_tpu_torch.train.tensorf_trainer import TensoRFTrainer
 
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = reset_counters()
 
     # ---- (a) VM at the CLI's full width
     ws_a = os.path.join(ws, "vm")
@@ -2571,16 +2610,16 @@ def tensorf_phase(dev, ws):
     argv = O_ARGV + ["--H", "256", "--W", "256", "--seal_config",
                      os.path.join(here, "seal_config_bbox"),
                      "--teacher_ckpt", ckpt, "--pretraining_epochs",
-                     str(SEAL_EPOCHS), "--extra_epochs", str(SEAL_STEPS),
-                     "--workspace", ws_c]
+                     str(TF_SEAL_EPOCHS), "--extra_epochs",
+                     str(TF_SEAL_STEPS), "--workspace", ws_c]
     t0 = time.perf_counter()
     st = main_SealTensoRF.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    timer = edit_outputs(st, ws_c, SEAL_EPOCHS,
+    timer = edit_outputs(st, ws_c, TF_SEAL_EPOCHS,
                          f"[tensorf seal] main_SealTensoRF bbox edit at "
                          f"256x256: {cli_s:.2f} s in all;")
-    print_edit_timer(st, timer, SEAL_STEPS, "[tensorf seal]")
+    print_edit_timer(st, timer, TF_SEAL_STEPS, "[tensorf seal]")
     check(len(st.render_stats) == 8
           and all(s_["nonfinite"] == 0 for s_ in st.render_stats),
           "edited TensoRF test views: count or non-finite pixels")
@@ -2604,9 +2643,326 @@ def tensorf_phase(dev, ws):
                                        f"{student_db:.2f} < {MIN_EDIT_PSNR}")
     check(n_px > 0, "the TensoRF edit changes no pixel")
 
-    launched = {k: fn.launches for k, fn in counters.items()}
+    launched = read_counters(counters)
     print(f"[tensorf] kernel launches over phase 21: {launched}")
     check(not any(launched.values()), "a kernel ran on the TensoRF path")
+
+
+# phase 23: the D-NeRF, CCNeRF and SDF CLIs at their families' full widths
+DN_ARGV = ["synthetic_dynamic", "-O", "--bound", "1.0", "--dt_gamma", "0",
+           "--min_near", "0.05", "--max_steps", "512", "--H", "256", "--W",
+           "256", "--num_views", "48", "--views_per_time", "4",
+           "--time_multires", "2", "--deform_reg", "1e-3"]
+DN_STEPS, DN_BUCKET_STEPS = 1500, 300     # 23a on K1, 23b on `bucket`
+DN_GRID_CALLS = 8 * 4   # a time-grid update: 8 slices of 2^19 points, 2^17
+CC_ARGV = ["synthetic", "-O", "--bound", "1.0", "--H", "256", "--W", "256"]
+CC_STEPS, CC_COMPRESS = 1200, ("8", "16", "24", "48")
+SDF_STEPS = 600
+MIN_FAMILY_GAIN_DB = 2.0   # over the untrained field (tests/test_dnerf.py,
+MIN_DN_PSNR = 18.0         # tests/test_ccnerf.py); absolute floors from
+MIN_CC_PSNR = 20.0         # PERF.md's PR 12 prediction
+MAX_SDF_MAE_FRAC = 0.5     # of the untrained field's (tests/test_sdf.py)
+
+
+def reset_counters():
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
+
+
+def read_counters(counters):
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def step_ms(tr) -> float:
+    """ms per train step over the timing window, grid updates included."""
+    st = tr.train_stats
+    return st["window_s"] / max(st["window_steps"], 1) * 1e3
+
+
+def families_phase(dev, ws):
+    """Phase 23 -> (K1 forward, K1 backward, hash forward, hash backward
+    launches on its main paths, K1's largest forward error)."""
+    f1, b1, err = dnerf_halo_phase(dev, os.path.join(ws, "dnerf"))
+    fh, bh = dnerf_bucket_phase(dev, os.path.join(ws, "dnerf_bucket"))
+    ccnerf_phase(dev, os.path.join(ws, "ccnerf"))
+    sdf_phase(os.path.join(ws, "sdf"))
+    return f1, b1, fh, bh, err
+
+
+def dnerf_field_calls(tr, steps):
+    """K1 (or hash) forward launches of a main_dnerf run: one a step, 32 a
+    time-grid update, one a rendered chunk (val and test views)."""
+    return (steps + DN_GRID_CALLS * len(tr.train_stats["grid_updates"])
+            + sum(s["chunks_rendered"] for s in tr.render_stats))
+
+
+def deform_moved(tr, fresh) -> list:
+    """Max |w - w_init| of each deform-net layer."""
+    return [float((a["w"] - b["w"]).abs().max()) for a, b in zip(
+        tr.state.params["deform_net"], fresh.state.params["deform_net"])]
+
+
+def dnerf_untrained(tr, val):
+    """A DNeRFTrainer of tr's config and seed at its init, after the first
+    step's time-grid update (slices 0-7; the val views sit at time 0)."""
+    from seal3d_tpu_torch.train.dnerf_trainer import DNeRFTrainer
+
+    fresh = DNeRFTrainer(tr.fcfg, tr.opts, dataclasses.replace(
+        tr.cfg, workspace=None), dataset=tr.dataset, device=tr.device,
+        time_size=tr.time_size, deform_reg=tr.deform_reg)
+    fresh.init_state()
+    fresh.update_grid()
+    return fresh, fresh.evaluate(dataset=val)
+
+
+def dnerf_halo_phase(dev, ws):
+    """Phase 23a: main_dnerf -O (K1) at full width for DN_STEPS steps."""
+    from seal3d_tpu_torch import main_dnerf
+    from seal3d_tpu_torch.config import common_parser, load_dataset
+    from seal3d_tpu_torch.ops import halo_encode as k1
+
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    tr = main_dnerf.main(DN_ARGV + ["--iters", str(DN_STEPS),
+                                    "--workspace", ws])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = read_counters(counters)
+    fwd, bwd = launched["halo_encode"], launched["halo_encode_bwd"]
+    calls = dnerf_field_calls(tr, DN_STEPS)
+    upd = [s for _, s in tr.train_stats["grid_updates"]]
+    in_window = sum(upd[1:])   # the updates after step 48 fall in the window
+    ms = step_ms(tr)
+    ms_steps = (tr.train_stats["window_s"] - in_window) / max(
+        tr.train_stats["window_steps"], 1) * 1e3
+    print(f"[dnerf] main_dnerf -O {DN_STEPS} steps at 256x256 (48 views, 4 "
+          f"a time; deform 5x128, 16 levels F=2 at T=2^15 wrap on K1, 64 "
+          f"time slices): {wall:.2f} s in all; {ms:.3f} ms a step with the "
+          f"time-grid updates, {ms_steps:.3f} without; {len(upd)} updates "
+          f"of 8 slices, {np.mean(upd):.3f} s each (first {upd[0]:.3f})")
+    print(f"[dnerf] K1 launches: forward {fwd} (field calls {calls}: "
+          f"{DN_STEPS} steps, {DN_GRID_CALLS} a grid update, 1 a rendered "
+          f"chunk), backward {bwd} (steps {DN_STEPS}); the others "
+          f"{ {k: v for k, v in launched.items() if v and 'halo' not in k} }")
+    check(fwd == calls and bwd == DN_STEPS,
+          f"D-NeRF K1 launches {fwd} / {bwd} != {calls} / {DN_STEPS}")
+    check(not any(v for k, v in launched.items() if "halo_encode" not in k),
+          f"another kernel ran on the D-NeRF -O path: {launched}")
+    cli, _ = common_parser("chip_smoke").parse_known_args(DN_ARGV)
+    val = load_dataset(cli, "val", device=dev)
+    fresh, psnr0 = dnerf_untrained(tr, val)
+    psnr1 = tr.eval_history[-1]["psnr"]
+    moved = deform_moved(tr, fresh)
+    print(f"[dnerf] val PSNR {psnr1:.2f} dB over 4 views at 256x256 after "
+          f"{DN_STEPS} steps, {psnr0:.2f} at the first step; deform_net "
+          f"moved max |dw| by layer {[round(v, 5) for v in moved]} (from "
+          f"its zero head, through the L1 term alone)")
+    check(psnr1 >= psnr0 + MIN_FAMILY_GAIN_DB and psnr1 >= MIN_DN_PSNR,
+          f"D-NeRF val PSNR {psnr1:.2f} (untrained {psnr0:.2f})")
+    check(all(v > 0 for v in moved), f"deform_net did not move: {moved}")
+    del fresh
+    _, f_step, b_step = k1_counted(tr.train_step)
+    (_, _), f_view, _ = k1_counted(lambda: tr.render_image_t(
+        val.poses[0], val.h, val.w, float(val.times[0])))
+    t0 = time.perf_counter()
+    _, f_grid, _ = k1_counted(tr.update_grid)
+    grid_s = time.perf_counter() - t0
+    print(f"[dnerf] K1 launches: a step {f_step} forward / {b_step} "
+          f"backward, a 256x256 view {f_view}, a time-grid update {f_grid} "
+          f"({grid_s:.3f} s)")
+    check((f_step, b_step, f_grid) == (1, 1, DN_GRID_CALLS),
+          "D-NeRF K1 launches a step / grid update")
+    prof = profile_steps(tr)
+    print(f"[dnerf] a step: {prof['launches']:.0f} launches, device busy "
+          f"{prof['busy_ms']:.3f} ms")
+    with capture_k1() as seen:
+        tr.train_step()
+    err = k1_case_vs_plain(dict(seen[-1], name="a D-NeRF step's warped "
+                                "samples ([N, K] grid)"), "[dnerf]")
+    chunk = {}
+    launch = k1._launch_fwd
+
+    def first_chunk(table, x, valid, cfg, *rest):
+        if not chunk:
+            chunk.update(table=table.detach(), x=x, valid=valid, cfg=cfg)
+        return launch(table, x, valid, cfg, *rest)
+
+    k1._launch_fwd = first_chunk
+    try:
+        tr.update_grid()
+    finally:
+        k1._launch_fwd = launch
+    with torch.no_grad():
+        e_grid = float((k1.halo_encode(chunk["table"], chunk["x"], None,
+                                       chunk["cfg"])
+                        - k1.halo_encode_plain(chunk["table"], chunk["x"],
+                                               None, chunk["cfg"]))
+                       .abs().max())
+    print(f"[dnerf] K1 on a time-grid update's chunk (M="
+          f"{chunk['x'].shape[0]}, warped at jittered times): fwd "
+          f"max_abs_err {e_grid:.3e}")
+    check(e_grid <= TOL, f"K1 on the D-NeRF grid chunk: {e_grid}")
+    return fwd, bwd, max(err, e_grid)
+
+
+def dnerf_bucket_phase(dev, ws):
+    """Phase 23b: main_dnerf --grid_backend bucket (K3 forward, K2 backward,
+    the positions' gradient) for DN_BUCKET_STEPS steps."""
+    from seal3d_tpu_torch import main_dnerf
+    from seal3d_tpu_torch.ops import hash_encode as k3
+
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    tr = main_dnerf.main(DN_ARGV + ["--grid_backend", "bucket", "--iters",
+                                    str(DN_BUCKET_STEPS), "--workspace", ws])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = read_counters(counters)
+    fwd, bwd = launched["hash_encode"], launched["hash_encode_bwd"]
+    calls = dnerf_field_calls(tr, DN_BUCKET_STEPS)
+    losses = [h["loss"] for h in tr.history]
+    fresh = type(tr)(tr.fcfg, tr.opts, dataclasses.replace(
+        tr.cfg, workspace=None), device=tr.device, time_size=tr.time_size)
+    fresh.init_state()
+    moved = deform_moved(tr, fresh)
+    print(f"[dnerf bucket] main_dnerf --grid_backend bucket (T=2^19 hash, "
+          f"F=2) {DN_BUCKET_STEPS} steps: {wall:.2f} s in all, "
+          f"{step_ms(tr):.3f} ms a step; loss {losses}; val PSNR "
+          f"{tr.eval_history[-1]['psnr']:.2f} dB; hash-encode launches "
+          f"forward {fwd} (field calls {calls}), backward {bwd}; deform_net "
+          f"moved {[round(v, 5) for v in moved]}")
+    check(fwd == calls and bwd == DN_BUCKET_STEPS,
+          f"D-NeRF bucket launches {fwd} / {bwd}")
+    check(not any(v for k, v in launched.items() if "hash_encode" not in k),
+          f"another kernel ran on the D-NeRF bucket path: {launched}")
+    check(losses[-1] < losses[0], f"D-NeRF bucket loss did not fall: "
+                                  f"{losses}")
+    check(all(v > 0 for v in moved), f"deform_net did not move: {moved}")
+    seen = {}
+    launch = k3._launch_fwd
+
+    def record(table, x, cfg):
+        seen.update(table=table.detach(), x=x.detach(), cfg=cfg)
+        return launch(table, x, cfg)
+
+    k3._launch_fwd = record
+    try:
+        tr.train_step()
+    finally:
+        k3._launch_fwd = launch
+    table, x, cfg = seen["table"], seen["x"], seen["cfg"]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    cot = torch.randn((x.shape[0], cfg.num_levels * table.shape[1]),
+                      generator=gen, device=dev)
+    xg = x.clone().requires_grad_()
+    (k3.hash_encode(table, xg, cfg).reshape(x.shape[0], -1) * cot).sum() \
+        .backward()
+    want = k3.bucket_dx(cot.cpu(), table.cpu(), x.cpu(), cfg)
+    err = float((xg.grad.cpu() - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"[dnerf bucket] positions' gradient of one step's warped samples "
+          f"(M={x.shape[0]}) on the card against the CPU plain version: "
+          f"max_abs_err {err:.3e} of max |dx| {scale:.3e}")
+    check(err <= 1e-5 * scale, f"bucket dx on the card: {err} of {scale}")
+    return fwd, bwd
+
+
+def ccnerf_phase(dev, ws):
+    """Phase 23c: main_CCNeRF at the CLI's ranks and 300^3, then --compress
+    and --compose on the run's checkpoint. No kernel of the table runs."""
+    from seal3d_tpu_torch import main_CCNeRF
+    from seal3d_tpu_torch.config import common_parser, load_dataset
+    from seal3d_tpu_torch.train.cc_trainer import CCNeRFTrainer
+
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    tr = main_CCNeRF.main(CC_ARGV + ["--iters", str(CC_STEPS),
+                                     "--workspace", ws])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cli = common_parser("chip_smoke").parse_args(CC_ARGV)
+    val = load_dataset(cli, "val", device=dev)
+    fresh = CCNeRFTrainer(tr.fcfg, tr.opts, dataclasses.replace(
+        tr.cfg, workspace=None), dataset=tr.dataset, device=dev)
+    fresh.init_state()
+    psnr0 = fresh.evaluate(dataset=val)
+    del fresh
+    psnr1 = tr.eval_history[-1]["psnr"]
+    prof = profile_steps(tr)
+    print(f"[ccnerf] main_CCNeRF {CC_STEPS} steps at 256x256 (300^3, ranks "
+          f"vd {tr.fcfg.rank_vec_density} md {tr.fcfg.rank_mat_density} vc "
+          f"{tr.fcfg.rank_vec} mc {tr.fcfg.rank_mat}, K=3 residual outputs "
+          f"a sample, 128 samples a ray): {wall:.2f} s in all; "
+          f"{step_ms(tr):.3f} ms a step, {prof['launches']:.0f} launches, "
+          f"busy {prof['busy_ms']:.3f} ms; val PSNR {psnr1:.2f} dB, "
+          f"untrained {psnr0:.2f}")
+    check(psnr1 >= psnr0 + MIN_FAMILY_GAIN_DB and psnr1 >= MIN_CC_PSNR,
+          f"CCNeRF val PSNR {psnr1:.2f} (untrained {psnr0:.2f})")
+    del tr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cmp = main_CCNeRF.main(CC_ARGV + ["--test", "--compress", *CC_COMPRESS,
+                                      "--workspace", ws])
+    cmp_s = time.perf_counter() - t0
+    cmp.state = cmp.state._replace(ema_params=cmp.state.params)
+    psnr_c = cmp.evaluate(dataset=val)
+    ranks = {f: [g["S"].shape[1] for g in cmp.state.params["objects"][0][f]]
+             for f in ("vec_density", "mat_density", "vec_color",
+                       "mat_color")}
+    print(f"[ccnerf] --test --compress {' '.join(CC_COMPRESS)}: {cmp_s:.2f} "
+          f"s (8 test renders); ranks {ranks}; val PSNR {psnr_c:.2f} dB")
+    check(psnr_c >= psnr0 + MIN_FAMILY_GAIN_DB,
+          f"compressed CCNeRF PSNR {psnr_c:.2f}")
+    del cmp
+    ckpt = os.path.join(ws, "checkpoints", f"ccnerf_step{CC_STEPS:07d}.npz")
+    t0 = time.perf_counter()
+    # the composed scene's renders at 128x128: only their finiteness is read
+    cps = main_CCNeRF.main(CC_ARGV + ["--H", "128", "--W", "128", "--test",
+                                      "--ckpt", ckpt, "--compose", ckpt,
+                                      "--workspace", os.path.join(ws, "cps")])
+    n_obj = len(cps.state.params["objects"])
+    print(f"[ccnerf] --compose {os.path.basename(ckpt)}: "
+          f"{time.perf_counter() - t0:.2f} s, {n_obj} objects, "
+          f"{len(cps.render_stats)} test views, non-finite values "
+          f"{sum(s['nonfinite'] for s in cps.render_stats)}")
+    check(n_obj == 2 and len(cps.render_stats) == 8 and not any(
+        s["nonfinite"] for s in cps.render_stats), "composed CCNeRF render")
+    launched = read_counters(counters)
+    check(not any(launched.values()), f"a kernel ran on the CCNeRF path: "
+                                      f"{launched}")
+
+
+def sdf_phase(ws):
+    """Phase 23d: main_sdf synthetic at the CLI's defaults (T=2^19, 16,384
+    points a step). No kernel of the table runs (the plain gather)."""
+    from seal3d_tpu_torch import main_sdf
+    from seal3d_tpu_torch.data.sdf_provider import load_mesh
+    from seal3d_tpu_torch.train.sdf_trainer import SDFTrainer
+
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    tr = main_sdf.main(["synthetic", "--iters", str(SDF_STEPS),
+                        "--workspace", ws])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fresh = SDFTrainer(tr.cfg, tr.dataset, num_points=tr.num_points)
+    mae0, mae1 = fresh.evaluate(), tr.evaluate()
+    verts, faces = load_mesh(os.path.join(ws, "sdf_mesh.ply"))
+    st = tr.train_stats
+    print(f"[sdf] main_sdf synthetic {SDF_STEPS} steps: {wall:.2f} s in all "
+          f"(the 256^3 mesh included); "
+          f"{st['window_s'] / st['window_steps'] * 1e3:.3f} ms a step; MAE "
+          f"{mae0:.5f} untrained, {mae1:.5f} after; mesh {len(verts)} "
+          f"vertices, {len(faces)} triangles")
+    check(mae1 <= MAX_SDF_MAE_FRAC * mae0, f"SDF MAE {mae1} of {mae0}")
+    check(len(verts) > 0 and np.abs(verts).max() <= 1.0 + 1e-5,
+          "SDF mesh empty or outside the bound")
+    launched = read_counters(counters)
+    check(not any(launched.values()), f"a kernel ran on the SDF path: "
+                                      f"{launched}")
 
 
 @contextlib.contextmanager
@@ -3642,7 +3998,7 @@ def profile_steps(tr, n: int = 3):
             prof.step()
     events = traced[0]
     # record_function ranges of the port
-    stage = ("step.", "render.", "tensorf.")
+    stage = ("step.", "render.", "tensorf.", "ProfilerStep")
     kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
                       and not e.key.startswith(stage)),
                      key=lambda e: -e.self_device_time_total)

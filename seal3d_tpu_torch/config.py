@@ -80,9 +80,11 @@ def refuse_unported(args):
             and not torch.cuda.is_available()):
         raise RuntimeError("no CUDA device (pass --device cpu to run the "
                            "plain PyTorch versions on the CPU)")
-    if args.gui:
-        raise NotImplementedError("--gui: not ported yet (ROADMAP.md Queue 1,"
-                                  " 'Other backends and families')")
+    if getattr(args, "gui", False):
+        raise NotImplementedError(
+            "--gui: not ported yet (ROADMAP.md Queue 1, item 8 'GUI state "
+            "and scripts', the last part of the former 'Other backends and "
+            "families')")
 
 
 def build_options(args) -> RenderOptions:
@@ -124,20 +126,23 @@ def build_train_config(args, family: str = "ngp") -> TrainConfig:
 
 def load_dataset(args, split: str = "trainval", device=None):
     from seal3d_tpu_torch.data.provider import NeRFDataset
-    from seal3d_tpu_torch.data.synthetic import SyntheticScene
+    from seal3d_tpu_torch.data.synthetic import (DynamicSyntheticScene,
+                                                 SyntheticScene)
 
     if args.path.startswith("synthetic"):
-        if "dynamic" in args.path:
-            raise NotImplementedError(
-                "the dynamic synthetic scene is not ported yet: ROADMAP.md "
-                "Queue 1, 'Other backends and families'")
+        dynamic = "dynamic" in args.path
+        scene = DynamicSyntheticScene() if dynamic else SyntheticScene()
         n = {"trainval": 24, "train": 20, "val": 4, "test": 8}.get(split, 8)
         if split in ("trainval", "train") and getattr(args, "num_views", 0):
             n = args.num_views
         seed = {"trainval": 0, "train": 0, "val": 1, "test": 2}.get(split, 2)
-        return SyntheticScene().make_dataset(
+        kw = {}
+        vpt = getattr(args, "views_per_time", 0)
+        if vpt and dynamic:
+            kw["views_per_time"] = vpt
+        return scene.make_dataset(
             n_views=n, h=args.H // args.downscale, w=args.W // args.downscale,
-            seed=seed, device=device)
+            seed=seed, device=device, **kw)
     return NeRFDataset.load(args.path, split=split, downscale=args.downscale,
                             scale=args.scale, offset=tuple(args.offset),
                             use_error_map=args.error_map)

@@ -1,8 +1,10 @@
 """Procedural analytic scene + ground-truth renderer (port of the
 `SyntheticScene` of seal3d_tpu/data/synthetic.py): colored blobs, a box and
-a torus inside [-bound, bound]^3, rendered with the dense compositor; and
-`WideSyntheticScene`, its bound-2 variant with content outside [-1, 1]^3.
-The hard and dynamic variants are not on the ported path.
+a torus inside [-bound, bound]^3, rendered with the dense compositor;
+`WideSyntheticScene`, its bound-2 variant with content outside [-1, 1]^3;
+and `DynamicSyntheticScene`, a ball swinging on an arc over a box as time
+runs over [0, 1] (D-NeRF's scene). The hard variant is not on the ported
+path.
 """
 
 from __future__ import annotations
@@ -135,3 +137,73 @@ class WideSyntheticScene(SyntheticScene):
         return SyntheticScene.make_dataset(self, n_views=n_views, h=h, w=w,
                                            radius=radius, seed=seed,
                                            fov_deg=fov_deg, device=device)
+
+
+@dataclass(frozen=True)
+class DynamicSyntheticScene(SyntheticScene):
+    """Time-varying variant: a ball swings on a +-0.9 rad arc of radius
+    `orbit_radius` over the box of SyntheticScene (bounded motion, as in the
+    reference's D-NeRF scenes); colours are SyntheticScene's."""
+
+    orbit_radius: float = 0.4
+
+    def density_t(self, x: torch.Tensor, t) -> torch.Tensor:
+        """[..., 3] positions at time t (a scalar or [...]) -> [...] sigma."""
+        t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+        ang = 0.9 * torch.sin(2.0 * torch.pi * t)
+        c = torch.stack([self.orbit_radius * torch.cos(ang),
+                         torch.zeros_like(ang) + 0.1,
+                         self.orbit_radius * torch.sin(ang)], -1)
+        d = torch.linalg.norm(x - c, dim=-1) - 0.22
+        moving = torch.sigmoid(-EDGE_K * d)
+        static = _box(x, [0.0, -0.35, 0.0], [0.45, 0.08, 0.45])
+        return self.density_scale * (moving + static).clamp(0.0, 1.0)
+
+    def render_rays_t(self, rays_o, rays_d, t, num_steps: int = 256,
+                      bg: float = 1.0):
+        n = rays_o.shape[0]
+        near, far = 0.05, 2.0 * self.bound + 2.0
+        lin = torch.linspace(0.0, 1.0, num_steps, device=rays_o.device)
+        z = (near + (far - near) * lin)[None, :].expand(n, num_steps)
+        xyz = rays_o[:, None] + z[..., None] * rays_d[:, None]
+        inside = (xyz.abs() <= self.bound).all(-1)
+        sigma = torch.where(inside, self.density_t(xyz, t), 0.0)
+        rgb = self.color(xyz, rays_d[:, None].expand(xyz.shape))
+        deltas = torch.diff(z, dim=-1)
+        deltas = torch.cat([deltas, deltas[..., -1:]], -1)
+        out = composite_dense(sigma, rgb, deltas, z)
+        image = out["image"] + (1.0 - out["weights_sum"])[:, None] * bg
+        return image, out["depth"]
+
+    def make_dataset(self, n_views: int = 24, h: int = 128, w: int = 128,
+                     radius: float = 2.2, seed: int = 0, fov_deg: float = 50.0,
+                     views_per_time: int = 2, device=None) -> NeRFDataset:
+        """Random orbit views in groups of `views_per_time` that share one
+        time; the times run evenly over [0, 1] (a remainder of views gets
+        time 1)."""
+        rng = np.random.default_rng(seed)
+        poses = rand_poses(rng, n_views, radius=radius, theta_range=(30, 120))
+        fx = fy = 0.5 * w / np.tan(0.5 * np.deg2rad(fov_deg))
+        intr = np.array([fx, fy, w / 2.0, h / 2.0], np.float32)
+        vpt = max(views_per_time, 1)
+        n_times = max(n_views // vpt, 1)
+        times = np.repeat(np.linspace(0.0, 1.0, n_times), vpt)[:n_views]
+        if len(times) < n_views:
+            times = np.concatenate([times, np.ones(n_views - len(times))])
+        times = times.astype(np.float32)
+        images = []
+        with torch.no_grad():
+            for p, t in zip(poses, times):
+                pose = torch.as_tensor(p, dtype=torch.float32, device=device)
+                rays = get_full_rays(pose, torch.as_tensor(intr, device=device),
+                                     h, w)
+                img = torch.cat([
+                    self.render_rays_t(rays["rays_o"][i:i + 16384],
+                                       rays["rays_d"][i:i + 16384],
+                                       float(t))[0]
+                    for i in range(0, h * w, 16384)]).reshape(h, w, 3)
+                images.append((img.clamp(0, 1) * 255).to(torch.uint8)
+                              .cpu().numpy())
+        return NeRFDataset(poses=poses.astype(np.float32),
+                           images=np.stack(images), intrinsics=intr, h=h, w=w,
+                           radius=radius, times=times)

@@ -19,8 +19,13 @@ use_hash_l, scale_l) from `HashGridConfig.level_params`:
 
 and the backward scatters gtab[offset_l + idx_c, f] += w_c * g[m, l*F + f].
 Like the reference's pallas and bucket backends, the encode ignores `valid`
-(every row is computed) and gives x no gradient: the reference's bucket
-backward also returns dx, which no path of the repo uses (ROADMAP Queue 3).
+(every row is computed). Positions get the gradient the reference gives
+them: none on the fused 'pallas' backend (its `_fused_bwd` returns None),
+and on 'bucket' the formula of its `_bucket_encode_bwd`: gw = g . (the
+gathered corner features), pulled back through the interpolation weights'
+derivative, dx = d/dx sum(w(x) * gw) (`bucket_dx`, plain PyTorch ops beside
+K2, as the reference computes it in XLA beside its Pallas kernel). D-NeRF's
+warp puts this gradient on a path.
 The CUDA kernels (csrc/hash_encode.cu) gather from and scatter into the fp32
 master table [total_params, F] directly and compute in fp32, so they differ
 from K3 by its bf16 rounding (up to ~2e-2), and from the plain versions below
@@ -39,8 +44,9 @@ import functools
 import numpy as np
 import torch
 
-from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig, gather_encode,
-                                           gather_encode_bwd)
+from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig,
+                                           corner_indices_weights,
+                                           gather_encode, gather_encode_bwd)
 
 
 def hash_encode_plain(table: torch.Tensor, x: torch.Tensor,
@@ -58,12 +64,32 @@ def hash_encode_bwd_plain(g: torch.Tensor, x: torch.Tensor,
     return gather_encode_bwd(g, x, cfg, n_rows)
 
 
+def bucket_dx(g: torch.Tensor, table: torch.Tensor, x: torch.Tensor,
+              cfg: HashGridConfig) -> torch.Tensor:
+    """The 'bucket' backend's position gradient [M, dim] for the cotangent
+    g [M, L, F] (or [M, L*F]), as the reference's `_bucket_encode_bwd`
+    computes it: gw [M, L, 2^dim] = g . (the corner rows of `table`), then
+    the gradient of sum(w(x) * gw) through the interpolation weights alone
+    (floor and the corner indices are constant in x). Plain PyTorch ops on
+    either device."""
+    idx, _ = corner_indices_weights(x, cfg)
+    m, levels, corners = idx.shape
+    feats = table[idx.reshape(m, -1)].reshape(m, levels, corners, -1)
+    gw = torch.einsum("mlf,mlcf->mlc", g.reshape(m, levels, -1), feats)
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(True)
+        _, w = corner_indices_weights(xx, cfg)
+        (dx,) = torch.autograd.grad((w * gw).sum(), xx)
+    return dx
+
+
 class _HashEncode(torch.autograd.Function):
-    """K3 / bucket encode with a table gradient; x and cfg get none."""
+    """K3 / bucket encode with a table gradient, and on 'bucket' the
+    reference's position gradient (`bucket_dx`); cfg gets none."""
 
     @staticmethod
     def forward(ctx, table, x, cfg):
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(x, table)
         ctx.cfg = cfg
         ctx.n_rows = table.shape[0]
         if table.device.type == "cpu":
@@ -72,22 +98,24 @@ class _HashEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return hash_encode_bwd(g.contiguous(), x, ctx.cfg, ctx.n_rows), None, None
+        x, table = ctx.saved_tensors
+        g = g.contiguous()
+        gtab = hash_encode_bwd(g, x, ctx.cfg, ctx.n_rows)
+        dx = None
+        if ctx.needs_input_grad[1] and ctx.cfg.backend == "bucket":
+            dx = bucket_dx(g, table, x, ctx.cfg)
+        return gtab, dx, None
 
 
 def hash_encode(table: torch.Tensor, x: torch.Tensor,
                 cfg: HashGridConfig) -> torch.Tensor:
-    """K3 / bucket forward -> [M, L, F] f32, differentiable in `table`. CPU
-    tensors take the plain version; CUDA tensors launch the kernel (counted
-    in `hash_encode.launches`). Positions get no gradient: a position that
-    requires one raises."""
+    """K3 / bucket forward -> [M, L, F] f32, differentiable in `table`, and
+    on cfg.backend 'bucket' in `x` too (`bucket_dx`); the fused 'pallas'
+    backend gives positions no gradient, as the reference does. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (counted in
+    `hash_encode.launches`)."""
     if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"hash_encode: unsupported device {table.device}")
-    if x.requires_grad:
-        raise ValueError("hash_encode gives positions no gradient (the "
-                         "reference's dx is on no path of the repo: "
-                         "ROADMAP.md Queue 3)")
     return _HashEncode.apply(table, x, cfg)
 
 

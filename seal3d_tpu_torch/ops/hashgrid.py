@@ -163,8 +163,13 @@ def corner_indices_weights(xf: torch.Tensor, cfg: HashGridConfig,
         cpos = cpos.clamp(0, resolution - 1)
         idx = _corner_indices(cpos, resolution, use_hash, params_in_level,
                               dim, cfg.gridtype) + (offset - base)
-        w = torch.where(corners[None, :, :] == 1, frac[:, None, :],
-                        1.0 - frac[:, None, :]).prod(-1)
+        f = torch.where(corners[None, :, :] == 1, frac[:, None, :],
+                        1.0 - frac[:, None, :])
+        # the product written out: the same roundings as prod(-1), whose
+        # backward syncs the host and scans when a factor is 0
+        w = f[..., 0]
+        for d in range(1, dim):
+            w = w * f[..., d]
         all_idx.append(idx)
         all_w.append(w)
     return torch.stack(all_idx, dim=1), torch.stack(all_w, dim=1)

@@ -1,7 +1,8 @@
 """Multi-cascade occupancy grid maintenance (port of
 seal3d_tpu/render/occupancy.py): `occupancy_init`, `occupancy_update` (full,
 or partial: a rotating strided slice plus occupied-cell resamples) and
-`mark_untrained`.
+`mark_untrained`; and the time-sliced grid of dynamic scenes (D-NeRF),
+`occupancy_t_init` / `occupancy_t_update`.
 
 Randomness: the reference draws the cell jitter and the occupied-cell
 uniforms with `jax.random`; here they are either passed in (tests hand both
@@ -173,3 +174,92 @@ def mark_untrained(state: OccupancyState, poses: torch.Tensor,
             vis[i:i + chunk] = ok.any(dim=1)
         grid[cas] = torch.where(vis, grid[cas], -1.0)
     return state._replace(density_grid=grid)
+
+
+# ----------------------------------------------------- time-sliced (D-NeRF)
+
+class OccupancyStateT(NamedTuple):
+    """Occupancy of a dynamic scene, one grid per time slice: `.npz` keys
+    `occ/density_grid` [T, C, H^3], `occ/bitfield` [T, C*H^3/8], as in the
+    reference."""
+
+    density_grid: torch.Tensor  # [T, C, H^3] f32
+    bitfield: torch.Tensor      # [T, C * H^3 / 8] uint8
+    mean_density: torch.Tensor  # [] f32
+    iter_density: torch.Tensor  # [] int32
+
+
+def occupancy_t_init(time_size: int, cascades: int,
+                     device=None) -> OccupancyStateT:
+    kw = dict(device=device)
+    return OccupancyStateT(
+        density_grid=torch.zeros((time_size, cascades, GRID_CELLS),
+                                 dtype=torch.float32, **kw),
+        bitfield=torch.zeros((time_size, cascades * GRID_CELLS // 8),
+                             dtype=torch.uint8, **kw),
+        mean_density=torch.zeros((), dtype=torch.float32, **kw),
+        iter_density=torch.zeros((), dtype=torch.int32, **kw))
+
+
+def occupancy_t_update(state: OccupancyStateT, density_fn,
+                       bound: float, t_indices, density_thresh: float = 0.01,
+                       decay: float = 0.95,
+                       cells_per_slice: int = GRID_CELLS // 8,
+                       query_chunk: int = 2**17,
+                       uni_codes: Optional[torch.Tensor] = None,
+                       uniforms: Optional[torch.Tensor] = None,
+                       jitter: Optional[torch.Tensor] = None,
+                       time_jitter: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> OccupancyStateT:
+    """Refresh the time slices `t_indices` (a sequence of ints): per slice
+    and cascade, `cells_per_slice` uniform cells plus as many resamples of
+    the slice's occupied cells, queried at jittered positions and at times
+    jittered within the slice; scatter-max of repeated cells, decay over the
+    written (and trained) cells alone; then the threshold min(mean density
+    of all slices, density_thresh) and one bitfield per slice.
+
+    density_fn: (x [M, 3], t [M]) -> sigma [M] (density-scaled).
+    The random numbers, per refreshed slice i and cascade c, where given
+    (tests hand both packages the same): uni_codes [n, C, Q] int cell codes,
+    uniforms [n, C, Q] in [0, 1) for the occupied resamples, jitter
+    [n, C, 2Q, 3] and time_jitter [n, C, 2Q] in [0, 1); None draws them from
+    `generator`.
+    """
+    grid = state.density_grid.clone()
+    time_size, cascades, _ = grid.shape
+    dev = grid.device
+    q = cells_per_slice
+
+    def rand(given, i, cas, shape):
+        return (given[i, cas] if given is not None else
+                torch.rand(shape, generator=generator, device=dev))
+
+    for i, ti in enumerate(int(t) for t in t_indices):
+        for cas in range(cascades):
+            uni = (uni_codes[i, cas].to(torch.int64) if uni_codes is not None
+                   else torch.randint(0, GRID_CELLS, (q,), generator=generator,
+                                      device=dev))
+            occ = _sample_occupied(rand(uniforms, i, cas, (q,)),
+                                   grid[ti, cas] > 0.0)
+            codes = torch.cat([uni, occ])
+            n = codes.shape[0]
+            xs = cell_world_positions(codes, cas, bound,
+                                      rand(jitter, i, cas, (n, 3)))
+            tval = (ti + 0.5) / time_size
+            tj = tval + (rand(time_jitter, i, cas, (n,)) - 0.5) / time_size
+            vals = torch.cat([density_fn(xs[j:j + query_chunk],
+                                         tj[j:j + query_chunk])
+                              for j in range(0, n, query_chunk)])
+            cur = grid[ti, cas]
+            new = torch.zeros_like(cur).scatter_reduce_(0, codes, vals, "amax")
+            written = torch.zeros_like(cur, dtype=torch.bool)
+            written[codes] = True
+            grid[ti, cas] = torch.where(written & (cur >= 0.0),
+                                        torch.maximum(cur * decay, new), cur)
+    mean_density = grid.clamp(min=0.0).mean()
+    thresh = torch.clamp(mean_density, max=density_thresh)
+    bitfield = torch.stack([packbits(g, thresh) for g in grid])
+    return OccupancyStateT(density_grid=grid, bitfield=bitfield,
+                           mean_density=mean_density,
+                           iter_density=state.iter_density + 1)

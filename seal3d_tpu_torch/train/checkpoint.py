@@ -16,7 +16,14 @@ torch `.pth` in the upstream torch-ngp / Seal-3D state-dict naming (port of
 the reference's functions of the same names), converting padded-level table
 layouts to the reference's native one and back; `export_torch_tensorf` /
 `import_torch_tensorf` do the same for TensoRF (VM or CP) params, with the
-`resolution` metadata the upstream loader re-instantiates from.
+`resolution` metadata the upstream loader re-instantiates from, and
+`export_torch_ccnerf` / `import_torch_ccnerf` for CCNeRF's object 0, with
+its `resolution` and cumulative `rank_*` metadata.
+
+Every family's params tree moves between the packages by path: NGP's,
+TensoRF's, D-NeRF's (`encoder` and `deform_net` / `basis_net` /
+`ambient_net`, `sigma_net`, `color_net`), CCNeRF's (`objects/<i>/<family>/
+<group>/U/<axis>`, `.../S`, `aabb`, `T`, `R`) and SDF's (`encoder`, `net`).
 
 A TensoRF state changes its factor shapes when it is upsampled or shrunk,
 so its load takes the file's shapes (`take_shapes=True`, what the
@@ -310,3 +317,89 @@ def import_torch_tensorf(pth_path: str, cfg, device=None):
             if m and m.group(1) in params:
                 params[m.group(1)][int(m.group(2))]["w"] = f32(v.T)
     return map_tree(params, lambda _, t: t.to(device)), list(res)
+
+
+# (family, U key, S key, rank metadata key) of the reference's CCNeRF .pth
+_CC_FAMS = (("vec_density", "U_vec_density", "S_vec_density",
+             "rank_vec_density"),
+            ("mat_density", "U_mat_density", "S_mat_density",
+             "rank_mat_density"),
+            ("vec_color", "U_vec", "S_vec", "rank_vec"),
+            ("mat_color", "U_mat", "S_mat", "rank_mat"))
+
+
+def _cc_ranks(obj: dict, fam: str, cfg_ranks) -> tuple:
+    """A family's cumulative rank metadata: the config's tuple where the
+    live group sizes still match it (keeping its empty groups), else the
+    cumsum of the live sizes (after finalize or compress)."""
+    sizes = [int(g["U"][0].shape[0]) for g in obj[fam]]
+    cfg_sizes = [int(d) for d in np.diff(np.asarray(cfg_ranks), prepend=0)
+                 if d > 0]
+    if cfg_sizes == sizes:
+        return tuple(int(r) for r in cfg_ranks)
+    return tuple(int(c) for c in np.cumsum(sizes))
+
+
+def export_torch_ccnerf(path: str, params: dict, cfg, step: int = 0):
+    """Write CCNeRF object 0 as a reference-compatible `.pth`: per group k
+    and axis i `U_*.{3k+i}` [1, R, D, 1] (vector) or [1, R, H, W]
+    (matrix), `S_*.{k}` [out_dim, R], `aabb_train` / `aabb_infer`, and the
+    `resolution` and cumulative `rank_*` metadata its loader re-instantiates
+    from."""
+    obj = params["objects"][0]
+    sd, meta = {}, {}
+    for fam, un, sn, rn in _CC_FAMS:
+        for k, g in enumerate(obj[fam]):
+            for i in range(3):
+                u = g["U"][i].detach().cpu()
+                if fam.startswith("vec"):
+                    u = u[:, :, None]
+                sd[f"{un}.{3 * k + i}"] = u[None].contiguous().clone()
+            sd[f"{sn}.{k}"] = g["S"].detach().cpu().contiguous().clone()
+        meta[rn] = list(_cc_ranks(obj, fam, getattr(cfg, rn)))
+    aabb = obj["aabb"].detach().cpu().clone()
+    sd["aabb_train"] = aabb
+    sd["aabb_infer"] = aabb.clone()
+    fam0 = next(f for f, _, _, _ in _CC_FAMS if obj[f])
+    u0 = obj[fam0][0]["U"]
+    res = [0, 0, 0]
+    for i in range(3):
+        if fam0.startswith("vec"):
+            res[tensorf.VEC_IDS[i]] = int(u0[i].shape[1])
+        else:
+            res[tensorf.MAT_IDS[i][0]] = int(u0[i].shape[2])
+            res[tensorf.MAT_IDS[i][1]] = int(u0[i].shape[1])
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({"model": sd, "resolution": res, **meta, "global_step": step,
+                "epoch": 0, "stats": {}}, path)
+
+
+def import_torch_ccnerf(pth_path: str, cfg, device=None):
+    """A reference CCNeRF `.pth` -> (params on `device`, new cfg): the field
+    re-instantiated at the file's `resolution` and `rank_*` metadata, then
+    its factors, weights and `aabb` filled in."""
+    from seal3d_tpu_torch.models import ccnerf
+
+    ckpt = torch.load(pth_path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model", ckpt)
+    res = tuple(int(r) for r in ckpt["resolution"])
+    new_cfg = dataclasses.replace(
+        cfg, resolution=res,
+        **{rn: tuple(int(r) for r in ckpt[rn])
+           for _, _, _, rn in _CC_FAMS if rn in ckpt})
+    params = ccnerf.init(new_cfg, generator=torch.Generator().manual_seed(0),
+                         resolution=res)
+    obj = params["objects"][0]
+
+    def f32(v):
+        return v.detach().to(torch.float32).contiguous()
+
+    for fam, un, sn, _ in _CC_FAMS:
+        for k, g in enumerate(obj[fam]):
+            for i in range(3):
+                u = sd[f"{un}.{3 * k + i}"][0]
+                g["U"][i] = f32(u[:, :, 0] if fam.startswith("vec") else u)
+            g["S"] = f32(sd[f"{sn}.{k}"])
+    if "aabb_train" in sd:
+        obj["aabb"] = f32(sd["aabb_train"])
+    return map_tree(params, lambda _, t: t.to(device)), new_cfg

@@ -127,6 +127,7 @@ class StepRandom(NamedTuple):
     jitter: Optional[torch.Tensor]  # [N] march-start jitter in [0, 1)
     z_jitter: Optional[torch.Tensor] = None  # [N, num_steps] dense oracle
     pdf_u: Optional[torch.Tensor] = None     # [N, upsample_steps] dense
+    reg_points: Optional[torch.Tensor] = None  # [4096, 3] D-NeRF sigma_reg
 
 
 def refresh_error_map(error_map: torch.Tensor, img_idx: torch.Tensor,
@@ -181,10 +182,6 @@ class Trainer:
         (`init`, `update`), by default Adam over every leaf at cfg.lr;
         clip_loss: a prepared utils.clip_guidance.CLIPLoss for the guided
         steps of cfg.rand_pose >= 0, or None (no guided step)."""
-        if cfg.lr_net_scale != 1.0:
-            raise NotImplementedError(
-                "a separate MLP learning rate (the D-NeRF family's) is not "
-                "ported yet: ROADMAP.md Queue 1, 'Other backends and families'")
         self.field = field_mod
         self.fcfg = field_cfg
         self.opts = opts
@@ -204,7 +201,8 @@ class Trainer:
         self.reg_fn = reg_fn
         self.clip_loss = clip_loss
         self._clip_acc = 0      # gt steps since the last guided step
-        self.optimizer = optimizer or Optimizer(cfg.lr, cfg.max_steps)
+        self.optimizer = optimizer or Optimizer(cfg.lr, cfg.max_steps,
+                                                net_scale=cfg.lr_net_scale)
         self.state: Optional[TrainState] = None
         self.dataset = None
         # one dict per render_image call (seconds, chunks, buckets, samples,
@@ -356,14 +354,18 @@ class Trainer:
     @staticmethod
     def _value_and_grads(params, fn):
         """(fn's loss, gradient tree shaped like params, fn's aux) of
-        fn(params) -> (loss [], aux)."""
+        fn(params) -> (loss [], aux). A leaf no gradient reaches gets zeros
+        (as jax.grad gives it): D-NeRF's deform net under the halo encode,
+        which gives positions no gradient."""
         flat = ckpt_io.flatten_tree(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in flat}
         with record_function("step.forward"):
             loss, aux = fn(ckpt_io.map_tree(params, lambda k, _: leaves[k]))
         with record_function("step.backward"):
             grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
+                loss, list(leaves.values()), allow_unused=True)))
+        grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+                 for k, g in grads.items()}
         return loss.detach(), ckpt_io.map_tree(params, lambda k, _: grads[k]), aux
 
     def loss_and_grads(self, params, occ: OccupancyState, batch: dict,
@@ -722,15 +724,17 @@ class Trainer:
         return min(pick, self.cfg.eval_flat_frac)
 
     @torch.no_grad()
-    def render_image(self, pose, h: int, w: int, bg_color: float = 1.0):
-        """Full-image render of the EMA params -> (image [h, w, 3], depth
-        [h, w]) tensors, with a stats dict appended to `self.render_stats`.
-        With use_dense every chunk goes through the dense oracle, unjittered
-        (no demand probe, no skipped chunk)."""
+    def render_image(self, pose, h: int, w: int, bg_color: float = 1.0,
+                     use_ema: bool = True):
+        """Full-image render of the EMA params (or, use_ema=False, of the
+        params) -> (image [h, w, 3], depth [h, w]) tensors, with a stats
+        dict appended to `self.render_stats`. With use_dense every chunk goes
+        through the dense oracle, unjittered (no demand probe, no skipped
+        chunk)."""
         t_start = time.perf_counter()
         chunk = self.cfg.eval_chunk
         st = self.state
-        params = st.ema_params
+        params = st.ema_params if use_ema else st.params
         dev = self.device
         pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
         rays = get_full_rays(pose, self._intrinsics, h, w)

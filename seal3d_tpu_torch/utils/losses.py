@@ -6,10 +6,12 @@ import torch
 
 
 def mape_loss(pred: torch.Tensor, target: torch.Tensor, reduce: bool = True):
-    """Mean absolute percentage error, per leading row."""
+    """Mean absolute percentage error, per leading row. |pred - target| is
+    written where(d >= 0, d, -d): its gradient at a zero difference is +1,
+    as jnp.abs's (torch.abs gives 0 there)."""
     difference = (pred - target).reshape(pred.shape[0], -1)
     scale = 1.0 / (target.reshape(pred.shape[0], -1).abs() + 1e-2)
-    loss = difference.abs() * scale
+    loss = torch.where(difference >= 0, difference, -difference) * scale
     return loss.mean() if reduce else loss
 
 

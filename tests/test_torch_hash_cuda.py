@@ -132,8 +132,9 @@ def test_hash_kernels_refuse_what_they_do_not_take(cuda_device):
                            backend="bucket", gridtype="tiled")
     with pytest.raises(ValueError):
         hash_encode(tab, x, tiled)                            # gridtype
-    with pytest.raises(ValueError):
-        hash_encode(tab, x.clone().requires_grad_(), cfg)     # no dx
+    xg = x.clone().requires_grad_()                           # bucket: dx
+    hash_encode(tab, xg, cfg).sum().backward()
+    assert xg.grad is not None and xg.grad.device == x.device
     g = torch.zeros((8, 4 * 4), device=cuda_device)
     with pytest.raises(ValueError):
         hash_encode_bwd(g.double(), x, cfg, cfg.total_params)  # dtype

@@ -184,8 +184,15 @@ def test_registry_kernel_path_is_plain_on_cpu(name):
 def test_hash_encode_refuses_what_it_does_not_take():
     _, tc = _cfgs(**SMALL, backend="bucket")
     tab = torch.zeros(tc.total_params, 2)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        hash_encode(tab, torch.rand(4, 3, requires_grad=True), tc)  # no dx
+    # positions that require a gradient are taken: 'bucket' gives them the
+    # reference's dx, the fused 'pallas' backend none (test_torch_dnerf.py
+    # holds both against jax.grad)
+    for backend, has_dx in (("bucket", True), ("pallas", False)):
+        x = torch.rand(4, 3, requires_grad=True)
+        cfg = dataclasses.replace(tc, backend=backend)
+        t = torch.rand(cfg.total_params, 2)
+        hash_encode(t, x, cfg).sum().backward()
+        assert (x.grad is not None) == has_dx, backend
     with pytest.raises(ValueError):
         hash_encode(tab.to("meta"), torch.zeros(4, 3, device="meta"), tc)
     with pytest.raises(ValueError):
