@@ -184,7 +184,8 @@ Phases, each of which raises (exit code != 0) when it fails:
 20. the Seal tools (it runs last, after phase 18): (a)-(c) the brush with
    a line stroke on the box's top face, the brush with a curve stroke on
    ball 1's cap and the anchor pulled up from that cap, each through
-   main_SealNeRF on phase 7's teacher at phase 14's recipe and gates (the
+   main_SealNeRF on phase 7's teacher at phase 14's recipe (finetune cut
+   to TOOL_STEPS) and gates (the
    seal.json written into the run's workspace), its stage seconds, and K1
    against its plain version (<= 1e-5) on the mapped samples of the
    busiest proxy chunk, whose peak device memory is printed; (d) a bbox
@@ -219,7 +220,7 @@ Phases, each of which raises (exit code != 0) when it fails:
    step 150: val PSNR >= 2 dB above the untrained field's, and a `.pth`
    round trip whose `apply` is bit-identical; (c) `python -m
    seal3d_tpu_torch.main_SealTensoRF` with seal_config_bbox on (a)'s
-   `.npz` at 25 epochs and 300 steps, 256x256: the stages
+   `.npz` at 15 epochs and 200 steps, 256x256: the stages
    of timer.json, the student against the mapped teacher on 4 val views
    (>= 25 dB), the pixels the edit changes (> 0), the student's aabb drift.
 22. the rest of main_nerf (it runs right after phase 7): (a) a Blender
@@ -250,7 +251,7 @@ Phases, each of which raises (exit code != 0) when it fails:
    (a) `python -m seal3d_tpu_torch.main_dnerf synthetic_dynamic -O --bound
    1.0 --dt_gamma 0 --min_near 0.05 --max_steps 512 --H 256 --W 256
    --num_views 48 --views_per_time 4 --time_multires 2 --deform_reg 1e-3
-   --iters 1500` (the 5x128 deform net, 16 levels F=2 at T=2^15 `wrap` on
+   --iters 1200` (the 5x128 deform net, 16 levels F=2 at T=2^15 `wrap` on
    K1, 64 time slices): ms a step with and without the time-grid updates
    and s an update (8 slices), K1's launches equal to the field calls (one
    a step, 32 an update, one a rendered chunk) and its backward once a
@@ -260,7 +261,7 @@ Phases, each of which raises (exit code != 0) when it fails:
    an update; a profiled step; K1 against its plain version on one more
    step's warped samples (forward <= 1e-5, backward within BWD_RTOL) and
    on a time-grid update's first chunk (<= 1e-5); (b) the same CLI with
-   `--grid_backend bucket` for 300 steps: the hash-encode launches equal to
+   `--grid_backend bucket` for 150 steps: the hash-encode launches equal to
    the field calls, the loss falls, the deform net moves, and the
    positions' gradient of one step's warped samples through the kernels on
    the card against the CPU plain version (<= 1e-5 of its largest entry);
@@ -273,6 +274,30 @@ Phases, each of which raises (exit code != 0) when it fails:
    seal3d_tpu_torch.main_sdf synthetic --iters 600` (T=2^19, 16,384 points
    a step): ms a step, MAE before and after (<= half), the 256^3 mesh's
    vertices. (c) and (d) launch no kernel of the table.
+24. the GUI layer headless (it runs last), on phase 7's teacher (its
+   checkpoint loaded into a Trainer of phase 7's configuration) in the
+   CLI's default window (800x800, OrbitCamera radius 3, fovy 60): (a)
+   NeRFViewer: 12 previews between orbit, pan and scale moves with K4 off,
+   then on: ms a frame by the downscale the budget picked and the one it
+   settles at, K1 once a rendered chunk, K4 once a chunk's probe and once
+   a rendered chunk, finite frames; a ds-1 frame bit-identical to
+   render_image at the camera's pose and intrinsics; 4 training slices at
+   the budget's steps (ms a step, K1 = steps and field calls); a train
+   step's rays then equal a never-previewed trainer's; (b) SealController
+   at paint_res 64: a stroke across the view's centre lifted, a brush
+   config, start_edit at the Seal CLI's pretraining recipe with phase
+   14's 50 epochs, a slice and a student preview at a time until pretraining
+   ends, then GUI_FT_SLICES finetune slices with previews: lifted points,
+   seconds from start_edit to the first student preview, ms and K1 a
+   slice, the student against the mapped teacher on 4 val poses (>=
+   MIN_GUI_PSNR), override and reset bit for bit, save_checkpoint loading
+   back; (c) the texture tool (a PNG by the port's writer, the image plane
+   from three lifted corners, one slice, finite renders) and SealViewer on
+   the Seal CLI's arguments (its teacher --teacher_ckpt's) exporting a
+   192^3 mesh; (d) the time-aware viewer on phase 23a's D-NeRF trainer:
+   frames at t = 0, 0.5, 1 differ, K1 once a chunk; (e) --gui through
+   main_nerf, main_dnerf and main_SealNeRF raises the RuntimeError naming
+   dearpygui before a step (where dearpygui imports, (e) is not run).
 The line before the last is the kernel table as JSON (eight rows for the
 nine Pallas call sites: hash_encode_bwd is both K2 and K3's backward; each
 with its launches on the main paths, its error, its time, the plain
@@ -307,6 +332,7 @@ TRAIN_STEPS = 576
 MIN_VAL_PSNR = 25.0  # a field with broken gradients stays near 12-15 dB
 MIN_EDIT_PSNR = 25.0  # the student against the mapped teacher, 4 val poses
 SEAL_EPOCHS, SEAL_STEPS = 50, 500   # the recipe's pretrain epochs, finetune
+TOOL_STEPS = 300    # phase 20a-c's finetune steps, cut from SEAL_STEPS
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
 # fp32 operations/s outside the tensor cores; the bound of a kernel is the
 # larger of its bytes over the first and its operations over the second
@@ -573,7 +599,7 @@ def main(argv=None):
         tensorf_phase(dev, os.path.join(ws, "tensorf"))
         lap("21")
         torch.cuda.empty_cache()
-        fwd, bwd, fwd_h, bwd_h, err = families_phase(
+        fwd, bwd, fwd_h, bwd_h, err, dn_tr = families_phase(
             dev, os.path.join(ws, "families"))
         k1_fwd["launches"] += fwd
         k1_bwd["launches"] += bwd
@@ -581,6 +607,14 @@ def main(argv=None):
         hash_rows[0]["launches"] += fwd_h
         hash_rows[1]["launches"] += bwd_h
         lap("23")
+        torch.cuda.empty_cache()
+        fwd, bwd, k4_gui = gui_phase(dev, os.path.join(ws, "gui"),
+                                     teacher_ckpt, dn_tr)
+        k1_fwd["launches"] += fwd
+        k1_bwd["launches"] += bwd
+        k4["launches"] += k4_gui
+        del dn_tr
+        lap("24")
     print(f"[time] wall seconds by phase: {json.dumps(seconds)}")
     kernels = [k1_fwd, k1_bwd, k1_tp, *hash_rows, k4, *k5_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -813,6 +847,7 @@ def train_phase(ws, backend="halo"):
     from seal3d_tpu_torch import main_nerf
     from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_bwd
     from seal3d_tpu_torch.ops.hash_encode import hash_encode, hash_encode_bwd
+    from seal3d_tpu_torch.train import checkpoint as ckpt_io
 
     families = {"K1": (halo_encode, halo_encode_bwd),
                 "hash-encode": (hash_encode, hash_encode_bwd)}
@@ -827,8 +862,22 @@ def train_phase(ws, backend="halo"):
     for fns in families.values():
         for fn in fns:
             fn.launches = 0
+    # the CLI's own checkpoint writes, timed (the reference writes them
+    # compressed too; their cost grows with the table)
+    saves, save_state = [], ckpt_io.save_state
+
+    def timed_save(path, state, full=True):
+        t_save = time.perf_counter()
+        save_state(path, state, full=full)
+        saves.append((path, full, time.perf_counter() - t_save,
+                      os.path.getsize(path)))
+
+    ckpt_io.save_state = timed_save
     t0 = time.perf_counter()
-    tr = main_nerf.main(argv)
+    try:
+        tr = main_nerf.main(argv)
+    finally:
+        ckpt_io.save_state = save_state
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     fwd, bwd = (fn.launches for fn in families[own])
@@ -893,13 +942,12 @@ def train_phase(ws, backend="halo"):
             if f.endswith(".png")]
     check(len(pngs) == 8, f"{backend}: {len(pngs)} test PNGs written")
     # the CLI writes two compressed checkpoints (the step one with the
-    # optimizer state, the eval's _best without), as the reference does;
-    # their cost grows with the table
-    t0 = time.perf_counter()
-    path = tr.save_checkpoint(os.path.join(ws, "timed.npz"))
-    print(f"{tag} one full .npz checkpoint "
-          f"({os.path.getsize(path) / 2**20:.1f} MiB, np.savez_compressed): "
-          f"{time.perf_counter() - t0:.2f} s")
+    # optimizer state, the eval's _best without), as the reference does
+    print(f"{tag} the CLI's .npz checkpoints (np.savez_compressed): "
+          + ", ".join(f"{os.path.basename(p)} ("
+                      f"{'full' if full else 'no optimizer state'}, "
+                      f"{size / 2**20:.1f} MiB) {sec:.2f} s"
+                      for p, full, sec, size in saves))
     profile_steps(tr)
     return tr, fwd, bwd
 
@@ -2159,7 +2207,8 @@ def busiest_proxy_chunk(dev, st, tag):
 def seal_tools_phase(dev, ws, teacher_ckpt, wide_ckpt, b2_cli_ckpt):
     """Phase 20, the Seal tools: (a)-(c) the brush (line, curve) and anchor
     edits through main_SealNeRF at bound 1 on phase 7's teacher, each with
-    phase 14's recipe and gates; (d) a bbox edit at bound 2 through the
+    phase 14's recipe (TOOL_STEPS finetune steps) and gates; (d) a bbox
+    edit at bound 2 through the
     SealTrainer API on phase 18a's WideSyntheticScene state, moving its
     cascade-1 satellite ball, then the Seal CLI at its default bound and
     dt_gamma on phase 18d's checkpoint; (e) the --dense_render Seal CLI at
@@ -2185,7 +2234,7 @@ def seal_tools_phase(dev, ws, teacher_ckpt, wide_ckpt, b2_cli_ckpt):
                          cfg_dir, "--teacher_ckpt", teacher_ckpt,
                          "--pretraining_epochs",
                          str(SEAL_EPOCHS), "--extra_epochs",
-                         str(SEAL_STEPS), "--workspace", run_ws]
+                         str(TOOL_STEPS), "--workspace", run_ws]
         t0 = time.perf_counter()
         st, fwd, bwd = k1_counted(lambda: main_SealNeRF.main(argv))
         sec = time.perf_counter() - t0
@@ -2194,11 +2243,11 @@ def seal_tools_phase(dev, ws, teacher_ckpt, wide_ckpt, b2_cli_ckpt):
                              f"{tag} main_SealNeRF at 256x256: {sec:.2f} s in "
                              f"all;")
         edit_launch_check(st, SEAL_EPOCHS,
-                          SEAL_STEPS, fwd, bwd, tag)
+                          TOOL_STEPS, fwd, bwd, tag)
         check(len(st.render_stats) == 8
               and all(s_["nonfinite"] == 0 for s_ in st.render_stats),
               f"{tag} edited test views: count or non-finite pixels")
-        print_edit_timer(st, timer, SEAL_STEPS, tag)
+        print_edit_timer(st, timer, TOOL_STEPS, tag)
         total_f, total_b = total_f + fwd, total_b + bwd
         e, _ = busiest_proxy_chunk(dev, st, tag)
         err = max(err, e)
@@ -2424,7 +2473,7 @@ def mesh_phase(dev, ws, teacher_ckpt, student):
 # box), cut from 1500 / (300, 500, 700, 900, 1100) when phase 23 came
 TF_STEPS = 1200
 TF_UPSAMPLE = (250, 450, 650, 850, 1100)
-TF_SEAL_EPOCHS, TF_SEAL_STEPS = 25, 300     # phase 21c, cut from 50 / 500
+TF_SEAL_EPOCHS, TF_SEAL_STEPS = 15, 200     # phase 21c, cut from 50 / 500
 TF_VOXELS = 300**3                          # the CLI's --resolution1 cubed
 MIN_TF_PSNR = 20.0      # phase 21a, 4 val views at 256x256
 CP_STEPS, CP_UPSAMPLE, MIN_CP_GAIN_DB = 300, 150, 2.0   # phase 21b
@@ -2653,7 +2702,7 @@ DN_ARGV = ["synthetic_dynamic", "-O", "--bound", "1.0", "--dt_gamma", "0",
            "--min_near", "0.05", "--max_steps", "512", "--H", "256", "--W",
            "256", "--num_views", "48", "--views_per_time", "4",
            "--time_multires", "2", "--deform_reg", "1e-3"]
-DN_STEPS, DN_BUCKET_STEPS = 1500, 300     # 23a on K1, 23b on `bucket`
+DN_STEPS, DN_BUCKET_STEPS = 1200, 150     # 23a on K1, 23b on `bucket`
 DN_GRID_CALLS = 8 * 4   # a time-grid update: 8 slices of 2^19 points, 2^17
 CC_ARGV = ["synthetic", "-O", "--bound", "1.0", "--H", "256", "--W", "256"]
 CC_STEPS, CC_COMPRESS = 1200, ("8", "16", "24", "48")
@@ -2684,12 +2733,13 @@ def step_ms(tr) -> float:
 
 def families_phase(dev, ws):
     """Phase 23 -> (K1 forward, K1 backward, hash forward, hash backward
-    launches on its main paths, K1's largest forward error)."""
-    f1, b1, err = dnerf_halo_phase(dev, os.path.join(ws, "dnerf"))
+    launches on its main paths, K1's largest forward error, 23a's D-NeRF
+    trainer)."""
+    f1, b1, err, dn_tr = dnerf_halo_phase(dev, os.path.join(ws, "dnerf"))
     fh, bh = dnerf_bucket_phase(dev, os.path.join(ws, "dnerf_bucket"))
     ccnerf_phase(dev, os.path.join(ws, "ccnerf"))
     sdf_phase(os.path.join(ws, "sdf"))
-    return f1, b1, fh, bh, err
+    return f1, b1, fh, bh, err, dn_tr
 
 
 def dnerf_field_calls(tr, steps):
@@ -2719,7 +2769,9 @@ def dnerf_untrained(tr, val):
 
 
 def dnerf_halo_phase(dev, ws):
-    """Phase 23a: main_dnerf -O (K1) at full width for DN_STEPS steps."""
+    """Phase 23a: main_dnerf -O (K1) at full width for DN_STEPS steps ->
+    (K1 forward, backward launches, K1's largest forward error, the
+    trainer)."""
     from seal3d_tpu_torch import main_dnerf
     from seal3d_tpu_torch.config import common_parser, load_dataset
     from seal3d_tpu_torch.ops import halo_encode as k1
@@ -2805,7 +2857,7 @@ def dnerf_halo_phase(dev, ws):
           f"{chunk['x'].shape[0]}, warped at jittered times): fwd "
           f"max_abs_err {e_grid:.3e}")
     check(e_grid <= TOL, f"K1 on the D-NeRF grid chunk: {e_grid}")
-    return fwd, bwd, max(err, e_grid)
+    return fwd, bwd, max(err, e_grid), tr
 
 
 def dnerf_bucket_phase(dev, ws):
@@ -4026,6 +4078,498 @@ def profile_steps(tr, n: int = 3):
         print(f"[profile]   {e.self_device_time_total / 1e3 / n:7.3f} ms "
               f"x{e.count // n:<4d} {e.key[:88]}")
     return {"busy_ms": busy, "launches": launches, "events": events, "n": n}
+
+
+# phase 24: the GUI layer headless, on phase 7's teacher in the CLI's
+# default window (800x800, OrbitCamera radius 3.0, fovy 60)
+GUI_MOVES = [("orbit", 60.0, -20.0), ("scale", 1.0, 0.0), ("pan", 40.0, 25.0),
+             ("orbit", -90.0, 10.0), ("orbit", 30.0, 45.0),
+             ("scale", -2.0, 0.0), ("pan", -60.0, -10.0),
+             ("orbit", 120.0, 0.0), ("orbit", 0.0, -60.0), ("scale", 1.5, 0.0),
+             ("pan", 20.0, -40.0), ("orbit", -45.0, 30.0)]
+GUI_SLICES = 4          # 24a's teacher train slices
+GUI_FT_SLICES = 8       # 24b's finetune slices after pretraining
+MIN_GUI_PSNR = 20.0     # 24b's student against the mapped teacher (PERF.md)
+GUI_MESH_RES = 192      # SealViewer._export_mesh's default
+GUI_BRUSH = dict(brush_pressure=0.05, attenuation_distance=0.05,
+                 rgb=[1.0, 0.2, 0.1])
+K1_NAMES = ("halo_encode", "halo_encode_bwd", "ladder_plan")
+
+
+def counted(fn, total):
+    """(fn(), {kernel: launches while fn ran}): each count read just before
+    and just after fn (so that a path's totals keep counting); K1's and
+    K4's are also added to `total`."""
+    counters = kernel_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    launched = {k: f.launches - before[k] for k, f in counters.items()}
+    for k in total:
+        total[k] += launched[k]
+    return out, launched
+
+
+def tree_leaves(tree) -> dict:
+    from seal3d_tpu_torch.train.checkpoint import flatten_tree
+
+    return {k: v.clone() for k, v in flatten_tree(tree)}
+
+
+def leaves_equal(tree, want: dict) -> bool:
+    from seal3d_tpu_torch.train.checkpoint import flatten_tree
+
+    got = dict(flatten_tree(tree))
+    return set(got) == set(want) and all(torch.equal(got[k], v)
+                                         for k, v in want.items())
+
+
+def phase7_trainer(dev, ws, ckpt):
+    """A Trainer of phase 7's CLI configuration on its 256x256 trainval
+    split, phase 7's final checkpoint loaded -> (trainer, its CLI
+    arguments)."""
+    from seal3d_tpu_torch.config import (build_options, build_train_config,
+                                         common_parser, grid_defaults,
+                                         load_dataset)
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.models.ngp import NGPConfig
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    args = common_parser("chip_smoke").parse_args(
+        O_ARGV + ["--iters", str(TRAIN_STEPS), "--H", "256", "--W", "256",
+                  "--workspace", ws])
+    backend, log2t, gridtype = grid_defaults(args)
+    fcfg = NGPConfig(bound=args.bound, log2_hashmap_size=log2t,
+                     grid_backend=backend, gridtype=gridtype)
+    tr = Trainer(ngp, fcfg, build_options(args), build_train_config(args),
+                 dataset=load_dataset(args, "trainval", device=dev),
+                 device=dev, name="ngp")
+    tr.init_state()
+    tr.load_checkpoint(ckpt)
+    return tr, args
+
+
+def gui_phase(dev, ws, teacher_ckpt, dn_tr):
+    """Phase 24 -> (K1 forward, K1 backward, K4 launches on its paths): (a)
+    the viewer on phase 7's teacher, (b) an edit through SealController,
+    (c) the texture tool and SealViewer's mesh export, (d) the D-NeRF
+    viewer on phase 23a's trainer, (e) --gui through the three CLIs."""
+    from seal3d_tpu_torch.config import common_parser
+
+    tr, args7 = phase7_trainer(dev, os.path.join(ws, "teacher"),
+                               teacher_ckpt)
+    view_args = common_parser("chip_smoke").parse_args(
+        O_ARGV + ["--workspace", ws])
+    check((view_args.W, view_args.H, view_args.radius, view_args.fovy)
+          == (800, 800, 3.0, 60.0), "the CLI's window defaults moved")
+    totals = dict.fromkeys(K1_NAMES, 0)
+    for launched in (gui_viewer_phase(dev, tr, view_args),
+                     gui_edit_phase(dev, ws, tr, args7, view_args,
+                                    teacher_ckpt),
+                     gui_texture_mesh_phase(dev, ws, tr, view_args,
+                                            teacher_ckpt),
+                     gui_dnerf_phase(dn_tr, ws)):
+        for k in totals:
+            totals[k] += launched[k]
+    gui_cli_phase(ws, teacher_ckpt)
+    print(f"[gui] kernel launches over phase 24's paths: {totals}")
+    return tuple(totals[k] for k in K1_NAMES)
+
+
+def gui_viewer_phase(dev, tr, args) -> dict:
+    """Phase 24a: NeRFViewer, headless, on phase 7's teacher: 12 previews
+    between camera moves with K4 off, then on (a fresh camera and budget
+    each time): ms a frame by the downscale the budget picked, K1 once a
+    rendered chunk, K4 once a chunk's demand probe and once a rendered
+    chunk, finite frames; a frame at downscale 1 bit-identical to
+    render_image at the camera's pose and intrinsics; 4 training slices at
+    the budget's steps; the train rays then equal a fresh trainer's."""
+    from seal3d_tpu_torch.gui.state import (DynamicBudget, OrbitCamera,
+                                            camera_intrinsics)
+    from seal3d_tpu_torch.gui.viewer import NeRFViewer
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    v = NeRFViewer(args, tr)
+    total = dict.fromkeys(K1_NAMES, 0)
+    chunk = tr.cfg.eval_chunk
+    for tl in (False, True):
+        tr.eval_opts = dataclasses.replace(tr.eval_opts, tl_kernel=tl)
+        v.cam = OrbitCamera(args.W, args.H, radius=args.radius,
+                            fovy=args.fovy)
+        v.budget = DynamicBudget()
+        by_ds = {}
+        for kind, dx, dy in GUI_MOVES:
+            if kind == "scale":
+                v.cam.scale(dx)
+            else:
+                getattr(v.cam, kind)(dx, dy)
+            ds = v.budget.downscale
+            t0 = time.perf_counter()
+            buf, launched = counted(v.render_frame, total)
+            ms = (time.perf_counter() - t0) * 1e3
+            st = tr.render_stats[-1]
+            n_chunks = -(-(args.H // ds) * (args.W // ds) // chunk)
+            k4_want = n_chunks + st["chunks_rendered"] if tl else 0
+            check(bool(np.isfinite(buf).all()) and st["nonfinite"] == 0,
+                  f"[gui view] a non-finite preview at ds {ds}")
+            check(launched["halo_encode"] == st["chunks_rendered"]
+                  and launched["ladder_plan"] == k4_want
+                  and not any(n for k, n in launched.items()
+                              if k not in ("halo_encode", "ladder_plan")),
+                  f"[gui view] launches {launched} for "
+                  f"{st['chunks_rendered']} of {n_chunks} chunks")
+            by_ds.setdefault(ds, []).append(
+                (ms, launched["halo_encode"], launched["ladder_plan"]))
+        print(f"[gui view] tl_kernel={tl}: {len(GUI_MOVES)} previews of the "
+              f"{args.W}x{args.H} window; by downscale: " + "; ".join(
+                  f"ds {d}: {len(r)} frames, ms {[round(x[0], 1) for x in r]}"
+                  f", K1 {[x[1] for x in r]}, K4 {[x[2] for x in r]}"
+                  for d, r in sorted(by_ds.items()))
+              + f"; settled at ds {v.budget.downscale}")
+    tr.eval_opts = dataclasses.replace(tr.eval_opts, tl_kernel=False)
+
+    def preview_and_ref():
+        v.budget.downscale = 1
+        frame = counted(v.render_frame, total)[0].copy()
+        with camera_intrinsics(tr, v.cam.intrinsics):
+            ref = tr.render_image(v.cam.pose, args.H, args.W)[0]
+        return frame, ref.cpu().numpy()
+
+    # the gate runs under deterministic algorithms; the default mode is
+    # reported beside it (one run of PR 13 saw 1 ulp there, which no
+    # isolated repeat reproduced)
+    diffs = {}
+    for det in (False, True):
+        torch.use_deterministic_algorithms(det)
+        try:
+            frame, ref = preview_and_ref()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        diffs[det] = (int((frame != ref).sum()),
+                      float(np.abs(frame - ref).max()))
+    print(f"[gui view] a ds-1 preview against render_image at the camera's "
+          f"pose and intrinsics, (values that differ, max diff): default "
+          f"mode {diffs[False]}, deterministic algorithms {diffs[True]}")
+    check(diffs[True][0] == 0, "a ds-1 preview differs from render_image")
+
+    rows = []
+    for _ in range(GUI_SLICES):
+        steps = v.budget.train_steps
+        t0 = time.perf_counter()
+        _, launched = counted(v.train_slice, total)
+        ms = (time.perf_counter() - t0) * 1e3
+        grid = tr.train_stats["grid_updates"]
+        fwd_want = steps + grid_field_calls(grid, 1)
+        check(launched["halo_encode_bwd"] == steps
+              and launched["halo_encode"] == fwd_want,
+              f"[gui view] a slice of {steps} steps launched {launched}")
+        rows.append((steps, ms / steps, len(grid)))
+    print(f"[gui view] {GUI_SLICES} training slices (steps, ms a step, "
+          f"grid updates): {[(s, round(m, 2), g) for s, m, g in rows]}; "
+          f"next slice {v.budget.train_steps} steps")
+    fresh = Trainer(tr.field, tr.fcfg, tr.opts, tr.cfg, dataset=tr.dataset,
+                    device=dev, name="never_previewed")
+    rand = tr.draw_step_random()
+    a, b = tr.sample_batch(rand), fresh.sample_batch(rand)
+    same = all(torch.equal(a[k], b[k]) for k in ("rays_o", "rays_d", "gt"))
+    print(f"[gui view] after {2 * len(GUI_MOVES) + 1} previews a train "
+          f"step's rays equal a never-previewed trainer's: {same}")
+    check(same, "a preview's intrinsics leaked into the train rays")
+    return total
+
+
+def gui_edit_phase(dev, ws, tr, args7, view, teacher_ckpt) -> dict:
+    """Phase 24b: SealController on the teacher (paint_res 64): a stroke
+    across the view's centre lifted, the brush config, start_edit at the
+    Seal CLI's pretraining recipe with phase 14's 50 epochs, a slice and a
+    student preview at a time until pretraining ends, then GUI_FT_SLICES
+    finetune slices each with a preview; the student against the mapped
+    teacher on 4 val poses (>= MIN_GUI_PSNR); override and reset bit for
+    bit; save_checkpoint loads back."""
+    from seal3d_tpu_torch import main_SealNeRF
+    from seal3d_tpu_torch.config import common_parser, load_dataset
+    from seal3d_tpu_torch.gui.state import (OrbitCamera, SealController,
+                                            ToolState)
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    total = dict.fromkeys(K1_NAMES, 0)
+
+    ctl = SealController(tr, ngp, tr.fcfg, tr.dataset,
+                         workspace=os.path.join(ws, "edit"),
+                         cam=OrbitCamera(view.W, view.H, radius=view.radius,
+                                         fovy=view.fovy),
+                         paint_res=64, seed=1)
+    p0, e0 = tree_leaves(tr.state.params), tree_leaves(tr.state.ema_params)
+    ctl.session.state = ToolState.BRUSH
+    for x in (20, 28, 36, 44):
+        ctl.painter.drag(x, 32)
+    n_mask = len(ctl.painter.indices())
+    n_pts, launched = counted(ctl.finish_stroke, total)
+    print(f"[gui edit] a stroke of {n_mask} of 64x64 pixels lifted to "
+          f"{n_pts} surface points (K1 {launched['halo_encode']})")
+    check(n_pts > 50, f"[gui edit] only {n_pts} points lifted")
+    for k, val in GUI_BRUSH.items():
+        setattr(ctl.session, k, val)
+    cfg = ctl.session.brush_config()
+    sa = main_SealNeRF.add_seal_args(common_parser("chip_smoke")).parse_args(
+        O_ARGV + ["--seal_config", "unused"])
+    kw = dict(pretrain_epochs=SEAL_EPOCHS,
+              pretrain_batch=sa.pretraining_batch_size,
+              lr=sa.pretraining_lr,
+              local_point_step=sa.pretraining_local_point_step,
+              surrounding_point_step=sa.pretraining_surrounding_point_step,
+              global_point_step=sa.pretraining_global_point_step)
+    t0 = time.perf_counter()
+    counted(lambda: ctl.start_edit(cfg, **kw), total)
+    t_init = time.perf_counter() - t0
+    st = ctl.student
+    batches = sum(v["n_batches"] for v in st.pretrain_data.values())
+    first_preview, pre, ft, previews = None, [], [], []
+
+    def preview():
+        return ctl.render_frame(view.H, view.W)
+
+    while st.is_pretraining:
+        t1 = time.perf_counter()
+        _, launched = counted(ctl.train_slice, total)
+        pre.append((time.perf_counter() - t1) * 1e3)
+        check(launched["halo_encode_bwd"] == batches
+              and launched["halo_encode"] == batches,
+              f"[gui edit] a pretraining slice launched {launched}, "
+              f"{batches} batches")
+        t1 = time.perf_counter()
+        (img, _), _ = counted(preview, total)
+        previews.append((time.perf_counter() - t1) * 1e3)
+        check(bool(np.isfinite(img).all()), "[gui edit] a non-finite preview")
+        if first_preview is None:
+            first_preview = time.perf_counter() - t0
+    check(len(st.pretrain_losses) == SEAL_EPOCHS
+          and bool(np.all(np.isfinite(st.pretrain_losses))),
+          f"[gui edit] pretrain losses {st.pretrain_losses}")
+    for i in range(GUI_FT_SLICES):
+        steps = ctl.budget.train_steps
+        t1 = time.perf_counter()
+        _, launched = counted(ctl.train_slice, total)
+        ms = (time.perf_counter() - t1) * 1e3
+        check(launched["halo_encode_bwd"] == steps,
+              f"[gui edit] a finetune slice of {steps} steps: {launched}")
+        ft.append((steps, ms, launched["halo_encode"],
+                   launched["halo_encode_bwd"], launched["ladder_plan"]))
+        (img, _), _ = counted(preview, total)
+        check(bool(np.isfinite(img).all()), "[gui edit] a non-finite preview")
+    losses = st.pretrain_losses
+    shells = {k: int(v["weight"].sum()) for k, v in st.pretrain_data.items()}
+    print(f"[gui edit] start_edit (mapper, student, shells of {shells} "
+          f"points, {batches} batches) {t_init:.3f} s; start_edit to the "
+          f"first student preview {first_preview:.3f} s; "
+          f"pretraining slices ms {np.median(pre):.1f} median "
+          f"({min(pre):.1f}-{max(pre):.1f}), K1 {batches} + {batches} a "
+          f"slice; pretrain loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"student previews ms {np.median(previews):.1f} median")
+    print(f"[gui edit] finetune slices (steps, ms, K1 fwd, K1 bwd, K4; the "
+          f"first with the proxied dataset and stage 2's set-up): "
+          f"{[(s, round(m, 1), f, b, k) for s, m, f, b, k in ft]}; ms a step "
+          f"after the first {np.median([m / s for s, m, *_ in ft[1:]]):.2f} "
+          f"median; the budget at ds {ctl.budget.downscale}")
+    val = load_dataset(args7, "val", device=dev)
+    ps, n_px = edit_gates(dev, st, teacher_ckpt, val, "[gui edit]",
+                          gate=False, plain_teacher=tr)
+    check(ps >= MIN_GUI_PSNR, f"[gui edit] student {ps:.2f} dB against the "
+                              f"mapped teacher < {MIN_GUI_PSNR}")
+    sp, se = tree_leaves(st.state.params), tree_leaves(st.state.ema_params)
+    ctl.override_teacher()
+    over = leaves_equal(tr.state.params, sp) and leaves_equal(
+        tr.state.ema_params, se)
+    ctl.reset_teacher()
+    reset = leaves_equal(tr.state.params, p0) and leaves_equal(
+        tr.state.ema_params, e0)
+    path = ctl.save_checkpoint()
+    back = Trainer(tr.field, tr.fcfg, tr.opts, tr.cfg, device=dev,
+                   name="loaded_back")
+    back.load_checkpoint(path)
+    loaded = leaves_equal(back.state.params, p0) and leaves_equal(
+        back.state.ema_params, e0)
+    print(f"[gui edit] override: the teacher's leaves are the student's, "
+          f"bit for bit {over}; reset: the snapshot's {reset}; "
+          f"save_checkpoint {os.path.basename(path)} loads back {loaded}")
+    check(over and reset and loaded, "[gui edit] override / reset / save")
+    return total
+
+
+def gui_texture_mesh_phase(dev, ws, tr, view, teacher_ckpt) -> dict:
+    """Phase 24c: the texture tool (a PNG written by the port's writer, the
+    image plane from three lifted corners of a stroke, one pretraining
+    slice, finite renders), then SealViewer on the Seal CLI's arguments (its
+    teacher loaded from --teacher_ckpt) and its mesh export at
+    GUI_MESH_RES^3."""
+    from seal3d_tpu_torch.config import (build_options, common_parser,
+                                         grid_defaults)
+    from seal3d_tpu_torch import main_SealNeRF
+    from seal3d_tpu_torch.gui.state import (OrbitCamera, SealController,
+                                            ToolState)
+    from seal3d_tpu_torch.gui.viewer import SealViewer
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.models.ngp import NGPConfig
+    from seal3d_tpu_torch.train.trainer import Trainer
+    from seal3d_tpu_torch.train.video import write_png
+
+    total = dict.fromkeys(K1_NAMES, 0)
+
+    os.makedirs(ws, exist_ok=True)
+    png = os.path.join(ws, "texture.png")
+    yy, xx = np.mgrid[0:64, 0:64]
+    checker = ((xx // 8 + yy // 8) % 2).astype(np.uint8)
+    write_png(png, np.stack([checker * 230, np.full_like(checker, 40),
+                             255 - checker * 200], -1).astype(np.uint8))
+    ctl = SealController(tr, ngp, tr.fcfg, tr.dataset,
+                         workspace=os.path.join(ws, "texture"),
+                         cam=OrbitCamera(view.W, view.H, radius=view.radius,
+                                         fovy=view.fovy),
+                         paint_res=64, seed=2)
+    ctl.session.state = ToolState.TEXTURE
+    for x in (22, 32, 42):
+        ctl.painter.drag(x, 32)
+    pts = counted(ctl.lift_mask, total)[0]
+    ctl.painter.clear()
+    corners = np.stack([pts[np.argmin(pts[:, 0] + pts[:, 1])],
+                        pts[np.argmax(pts[:, 0] - pts[:, 1])],
+                        pts[np.argmax(pts[:, 1] - pts[:, 0])]])
+    area = float(np.linalg.norm(np.cross(corners[1] - corners[0],
+                                         corners[2] - corners[0])))
+    ctl.session.paint(corners)
+    ctl.session.paint(pts)
+    cfg = ctl.texture_config(png)
+    counted(lambda: ctl.start_edit(
+        cfg, pretrain_epochs=1, pretrain_batch=2**19, local_point_step=0.01,
+        surrounding_point_step=0.02, global_point_step=0.1), total)
+    check(counted(ctl.train_slice, total)[0],
+          "[gui texture] the slice did not run")
+
+    def preview():
+        ctl.budget.downscale = 2
+        return counted(lambda: ctl.render_frame(view.H, view.W), total)[0]
+
+    img_s, dep_s = preview()
+    ctl.show_student = False
+    img_t, _ = preview()
+    finite = all(bool(np.isfinite(a).all()) for a in (img_s, dep_s, img_t))
+    print(f"[gui texture] {len(pts)} lifted stroke points, corners o/w/h "
+          f"{np.round(corners, 3).tolist()} (plane area {area:.4f}); the "
+          f"mapper's flags {sorted(ctl.student.mapper.flags)}; one slice; "
+          f"student and teacher previews finite {finite}, mean |d| "
+          f"{float(np.abs(img_s - img_t).mean()):.4f}")
+    check(finite and area > 1e-3 and "image" in ctl.student.mapper.flags,
+          "[gui texture] corners, mapper or renders")
+    ctl.reset_teacher()
+
+    ws_v = os.path.join(ws, "viewer")
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = main_SealNeRF.add_seal_args(common_parser("chip_smoke")).parse_args(
+        O_ARGV + ["--iters", str(TRAIN_STEPS), "--H", "256", "--W", "256",
+                  "--seal_config", os.path.join(here, "seal_config_bbox"),
+                  "--teacher_ckpt", teacher_ckpt, "--teacher_workspace",
+                  os.path.join(ws_v, "teacher"), "--workspace", ws_v])
+    backend, log2t, gridtype = grid_defaults(args)
+    fcfg = NGPConfig(bound=args.bound, log2_hashmap_size=log2t,
+                     grid_backend=backend, gridtype=gridtype)
+
+    def make_trainer(tcfg, ds, name):     # main_SealNeRF's
+        return Trainer(ngp, fcfg, build_options(args), tcfg, dataset=ds,
+                       seed=args.seed, device=args.device, name=name,
+                       use_dense=args.dense_render)
+
+    v = SealViewer(args, ngp, fcfg, make_trainer)
+    check(int(v.trainer.state.step) == TRAIN_STEPS,
+          "[gui mesh] SealViewer's teacher is not --teacher_ckpt's")
+    t0 = time.perf_counter()
+    (verts, tris), launched = counted(lambda: v._export_mesh(GUI_MESH_RES),
+                                      total)
+    mesh_s = time.perf_counter() - t0
+    chunks = -(-GUI_MESH_RES**3 // 2**16)
+    inside = bool(np.all(np.abs(verts) <= args.bound + 1e-5))
+    print(f"[gui mesh] SealViewer on the Seal CLI's arguments (teacher "
+          f"--teacher_ckpt, step {int(v.trainer.state.step)}); "
+          f"_export_mesh at {GUI_MESH_RES}^3: {len(verts)} verts, "
+          f"{len(tris)} tris, {mesh_s:.2f} s, K1 {launched['halo_encode']} "
+          f"launches ({chunks} chunks of 2^16 points), vertices inside the "
+          f"bound {inside}")
+    check(len(verts) > 1000 and inside
+          and launched["halo_encode"] == chunks, "[gui mesh] the mesh")
+    return total
+
+
+def gui_dnerf_phase(dn_tr, ws) -> dict:
+    """Phase 24d: the time-aware NeRFViewer on phase 23a's D-NeRF trainer:
+    frames at t = 0, 0.5 and 1 (downscale 1 of the 256x256 window) differ,
+    K1 once a rendered chunk."""
+    from seal3d_tpu_torch.config import common_parser
+    from seal3d_tpu_torch.gui.viewer import NeRFViewer
+
+    args, _ = common_parser("chip_smoke").parse_known_args(
+        DN_ARGV + ["--workspace", ws])
+    v = NeRFViewer(args, dn_tr)
+    check(v._time_aware, "[gui dnerf] the viewer has no time slider")
+    total = dict.fromkeys(K1_NAMES, 0)
+    frames, ms = [], []
+    for t in (0.0, 0.5, 1.0):
+        v.time_value, v.budget.downscale = t, 1
+        t0 = time.perf_counter()
+        buf, launched = counted(v.render_frame, total)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        st = dn_tr.render_stats[-1]
+        check(bool(np.isfinite(buf).all())
+              and launched["halo_encode"] == st["chunks_rendered"]
+              and launched["halo_encode_bwd"] == 0,
+              f"[gui dnerf] frame at t={t}: {launched}, {st}")
+        frames.append(buf.copy())
+    d = [float(np.abs(frames[i] - frames[j]).mean())
+         for i, j in ((0, 1), (1, 2), (0, 2))]
+    print(f"[gui dnerf] frames at t = 0, 0.5, 1 ({args.W}x{args.H}, ds 1): "
+          f"ms {[round(m, 1) for m in ms]}, K1 a frame "
+          f"{dn_tr.render_stats[-1]['chunks_rendered']}, mean |d| between "
+          f"them {[round(x, 5) for x in d]}")
+    check(min(d) > 1e-4, "[gui dnerf] frames at other times do not differ")
+    return total
+
+
+def gui_cli_phase(ws, teacher_ckpt):
+    """Phase 24e: `--gui` through main_nerf, main_dnerf and main_SealNeRF
+    raises the RuntimeError naming dearpygui before a train step (this
+    machine has no dearpygui; where it imports, --gui would open a window,
+    and (e) is not run)."""
+    from seal3d_tpu_torch import gui, main_dnerf, main_nerf, main_SealNeRF
+
+    if gui.HAS_DPG:
+        print("[gui cli] dearpygui imports here: --gui opens a window, so "
+              "(e) is not run")
+        return
+    here = os.path.dirname(os.path.abspath(__file__))
+    small = ["--H", "64", "--W", "64", "--num_views", "4"]
+    runs = {
+        "main_nerf": (main_nerf.main, O_ARGV + small),
+        "main_dnerf": (main_dnerf.main, DN_ARGV + small),
+        "main_SealNeRF": (main_SealNeRF.main, O_ARGV + small + [
+            "--seal_config", os.path.join(here, "seal_config_bbox"),
+            "--teacher_ckpt", teacher_ckpt, "--teacher_workspace",
+            os.path.join(ws, "cli_teacher")]),
+    }
+    for name, (fn, argv) in runs.items():
+        out = os.path.join(ws, f"cli_{name}")
+        msg = ""
+        counters = kernel_counters()
+        bwd0 = counters["halo_encode_bwd"].launches
+        try:
+            fn(argv + ["--workspace", out, "--gui"])
+        except RuntimeError as e:
+            msg = str(e)
+        steps = counters["halo_encode_bwd"].launches - bwd0
+        print(f"[gui cli] {name} --gui: RuntimeError {msg!r}; train steps "
+              f"{steps}, checkpoints written "
+              f"{os.path.exists(os.path.join(out, 'checkpoints'))}")
+        check("dearpygui" in msg and steps == 0
+              and not os.path.exists(os.path.join(out, "checkpoints")),
+              f"[gui cli] {name} --gui")
 
 
 if __name__ == "__main__":

@@ -71,20 +71,21 @@ def common_parser(desc: str) -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args):
-    """Raise NotImplementedError, naming the ROADMAP.md item, for the one
-    CLI option whose code is not ported yet (--gui), in every CLI of the
-    port alike; raise RuntimeError where the run asks for the card (the
-    default) and there is none."""
+def refuse_unported(args, has_viewer: bool = False):
+    """Raise RuntimeError where the run asks for the card (the default) and
+    there is none; raise ValueError for `--gui` in a CLI without a viewer
+    (has_viewer=False): the JAX package's main_tensoRF, main_SealTensoRF,
+    main_CCNeRF and main_sdf parse `--gui` and ignore it, and only
+    main_nerf, main_dnerf and main_SealNeRF open one."""
     if (torch.device(args.device).type == "cuda"
             and not torch.cuda.is_available()):
         raise RuntimeError("no CUDA device (pass --device cpu to run the "
                            "plain PyTorch versions on the CPU)")
-    if getattr(args, "gui", False):
-        raise NotImplementedError(
-            "--gui: not ported yet (ROADMAP.md Queue 1, item 8 'GUI state "
-            "and scripts', the last part of the former 'Other backends and "
-            "families')")
+    if getattr(args, "gui", False) and not has_viewer:
+        raise ValueError(
+            "--gui: the reference has no viewer for this CLI (it parses "
+            "--gui and ignores it); main_nerf, main_dnerf and main_SealNeRF "
+            "have one")
 
 
 def build_options(args) -> RenderOptions:

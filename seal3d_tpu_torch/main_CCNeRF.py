@@ -13,8 +13,8 @@ the EMA) to `<ws>/results/`. `--compress vd md vc mc` keeps the top ranks of
 each finalized family before the test renders; `--compose <ckpt> ...` adds
 each checkpoint's object 0, finalized, at x + (0.4 (i + 1), 0, 0). `--ckpt`
 takes an `.npz` of either package or a reference `.pth` (re-instantiated at
-its ranks and resolution). Add `--device cpu` to run on the CPU. The GUI is
-not ported yet (ROADMAP.md Queue 1) and raises NotImplementedError.
+its ranks and resolution). Add `--device cpu` to run on the CPU. `--gui`
+raises ValueError: the reference has no viewer for this CLI.
 """
 
 from __future__ import annotations

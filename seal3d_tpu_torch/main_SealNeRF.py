@@ -17,8 +17,10 @@ two-cascade field (train it at `--lr 3e-3`, as main_nerf); with
 `--dense_render` the teacher trains and renders through the dense oracle
 while the student keeps the occupancy-grid path, as in the reference.
 `--error_map` samples the teacher's and the student's train rays from
-their error maps. `--gui` raises NotImplementedError naming its ROADMAP.md
-item.
+their error maps. `--gui` opens the editing viewer (`gui.SealViewer`, on
+the teacher of `--teacher_workspace` / `--teacher_ckpt`) instead of the
+batch edit; it needs dearpygui, and raises RuntimeError where that does
+not import.
 """
 
 from __future__ import annotations
@@ -67,20 +69,15 @@ def add_seal_args(parser):
     return parser
 
 
-def run_seal(args, field_mod, fcfg, make_trainer, name,
-             family: str = "ngp") -> SealTrainer:
-    """The edit of one backbone: `make_trainer(tcfg, ds, name)` builds its
-    teacher trainer; `family` ('ngp' or 'tensorf') picks the train config's
-    eval chunk. A `.pth` teacher is read as NGP params, as the reference
-    reads it: another family's raises ValueError."""
-    opts = build_options(args)
-    tcfg = build_train_config(args, family=family)
-    # the edit first: a config of an unknown tool fails before any training
-    mapper = build_mapper(load_mapper_config(args.seal_config),
-                          workspace=tcfg.workspace)
-    ds = load_dataset(args, "trainval", device=args.device)
-
-    # ---- teacher
+def build_teacher(args, fcfg, make_trainer, name, ds,
+                  family: str = "ngp"):
+    """The teacher of an edit on dataset `ds`: `make_trainer(tcfg, ds,
+    name)` builds it under `<name>_teacher`, with `--teacher_workspace`
+    as its workspace; it loads `--teacher_ckpt` (a path, or 'latest' of
+    that workspace's checkpoints) and trains `--train_teacher` steps (or
+    `--iters`, where no checkpoint loads). A `.pth` teacher is read as NGP
+    params, as the reference reads it: another family's raises
+    ValueError."""
     teacher_tcfg = build_train_config(args, family=family)
     teacher_tcfg.workspace = args.teacher_workspace
     teacher = make_trainer(teacher_tcfg, ds, name=f"{name}_teacher")
@@ -113,11 +110,26 @@ def run_seal(args, field_mod, fcfg, make_trainer, name,
         teacher.train(steps=steps)
         teacher.save_checkpoint()
         print(f"[teacher] PSNR {teacher.evaluate(max_views=2):.2f}")
+    return teacher
+
+
+def run_seal(args, field_mod, fcfg, make_trainer, name,
+             family: str = "ngp") -> SealTrainer:
+    """The edit of one backbone: `make_trainer(tcfg, ds, name)` builds its
+    teacher trainer (`build_teacher`); `family` ('ngp' or 'tensorf') picks
+    the train config's eval chunk."""
+    opts = build_options(args)
+    tcfg = build_train_config(args, family=family)
+    # the edit first: a config of an unknown tool fails before any training
+    mapper = build_mapper(load_mapper_config(args.seal_config),
+                          workspace=tcfg.workspace)
+    ds = load_dataset(args, "trainval", device=args.device)
+    teacher = build_teacher(args, fcfg, make_trainer, name, ds, family)
 
     # ---- student
     secondary = {}
     if args.secondary_teacher_ckpt:
-        sec = make_trainer(teacher_tcfg, ds, name=f"{name}_teacher2")
+        sec = make_trainer(teacher.cfg, ds, name=f"{name}_teacher2")
         sec.init_state()
         sec.load_checkpoint(args.secondary_teacher_ckpt)
         secondary = dict(secondary_field=field_mod, secondary_cfg=fcfg,
@@ -176,7 +188,7 @@ def main(argv=None) -> SealTrainer:
     parser = add_seal_args(common_parser("seal3d-tpu Seal editing (NGP, "
                                          "PyTorch port)"))
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    refuse_unported(args, has_viewer=True)
     backend, log2t, gridtype = grid_defaults(args)
     fcfg = NGPConfig(bound=args.bound, log2_hashmap_size=log2t,
                      grid_backend=backend, gridtype=gridtype,
@@ -187,6 +199,11 @@ def main(argv=None) -> SealTrainer:
                        seed=args.seed, device=args.device, name=name,
                        use_dense=args.dense_render)
 
+    if args.gui:
+        from seal3d_tpu_torch.gui import launch_seal_gui
+
+        launch_seal_gui(args, ngp, fcfg, make_trainer)
+        return None
     return run_seal(args, ngp, fcfg, make_trainer, "sealnerf")
 
 

@@ -15,8 +15,10 @@ trains from scratch with the MLPs at a tenth of the rate (`lr_net_scale`
 `tiled` one on `xla`; `--grid_backend bucket` (or `pallas`) runs the hash
 encode kernels, `bucket` with the positions' gradient. As in the reference
 CLI, nothing is loaded: `--test` renders the fresh field. Add `--device cpu`
-to run on the CPU (the plain versions). The GUI is not ported yet
-(ROADMAP.md Queue 1) and raises NotImplementedError.
+to run on the CPU (the plain versions). `--gui` opens the time-aware
+viewer (`gui.NeRFViewer` with a time slider) on the fresh trainer, in place
+of the run; it needs dearpygui, and raises RuntimeError where that does not
+import.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def main(argv=None) -> DNeRFTrainer:
     parser.add_argument("--time_multires", type=int, default=6,
                         help="frequency octaves of the time encoding")
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    refuse_unported(args, has_viewer=True)
     seed_everything(args.seed)
     backend, log2t, gridtype = grid_defaults(args)
     fcfg = DNeRFConfig(bound=args.bound, variant=args.variant,
@@ -64,6 +66,12 @@ def main(argv=None) -> DNeRFTrainer:
                       deform_reg=args.deform_reg, sigma_reg=args.sigma_reg,
                       use_dense=args.dense_render)
     tr.init_state()
+
+    if args.gui:
+        from seal3d_tpu_torch.gui import launch_gui
+
+        launch_gui(args, tr)
+        return tr
 
     if not args.test:
         tr.train(steps=args.iters)

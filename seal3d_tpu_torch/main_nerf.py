@@ -27,8 +27,10 @@ to a per-view error map; `--bg_radius R` (R > 0) adds the background net.
 (every step at N = 0, one per N steps above), with a local transformers
 CLIP checkpoint (`--clip_model_path`) or a randomly initialised one
 (`--clip_random_init`); without a usable CLIP the CLI exits with the JAX
-CLI's message. The GUI is not ported yet (ROADMAP.md Queue 1) and raises
-NotImplementedError.
+CLI's message. `--gui` opens the viewer (`gui.NeRFViewer`: an orbit
+camera over previews at an adaptive downscale, interleaved with training
+slices) after the checkpoint load, in place of the run; it needs
+dearpygui, and raises RuntimeError where that does not import.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ def main(argv=None) -> Trainer:
                         help="<0 off, 0 = every step a CLIP-guided random "
                              "pose, >0 one guided step per N gt steps")
     args = parser.parse_args(argv)
-    refuse_unported(args)
+    refuse_unported(args, has_viewer=True)
     seed_everything(args.seed)
     backend, log2t, gridtype = grid_defaults(args)
     fcfg = NGPConfig(bound=args.bound, log2_hashmap_size=log2t,
@@ -102,6 +104,12 @@ def main(argv=None) -> Trainer:
         print(f"[ckpt] loaded {path}")
     elif args.test:
         raise SystemExit(f"--test needs a checkpoint; none at {args.ckpt!r}")
+
+    if args.gui:
+        from seal3d_tpu_torch.gui import launch_gui
+
+        launch_gui(args, tr)
+        return tr
 
     if not args.test:
         tr.train(steps=args.iters)

@@ -16,8 +16,8 @@ split to `<ws>/results/`. `--cp` selects the CP decomposition; `--test
 reference `.pth` (re-instantiated at its resolution). `--bg_radius > 0`
 trains the background net. Add `--device cpu` to run on the CPU (the
 plain versions). `--error_map` draws the train rays from per-view error
-maps. The GUI is not ported yet (ROADMAP.md Queue 1) and raises
-NotImplementedError.
+maps. `--gui` raises ValueError: the reference has no viewer for this
+CLI.
 """
 
 from __future__ import annotations

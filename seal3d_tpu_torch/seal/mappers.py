@@ -28,10 +28,10 @@ sync. The brush's nearest-representative and border searches are [N, R]
 differences: they run only on the rows inside the map bound (gathered, then
 scattered back; every other row keeps its point and has mask False), in
 blocks of rows that bound their memory. Every tool of the reference is
-here; the GUI that draws them (`--gui`) is not ported. The config schema
-is the reference's `seal.json`, parsed with the standard library: `//`
-comments and trailing commas of json5 files are stripped, other json5
-syntax is refused by the parser.
+here; the GUI that draws them (`--gui`) is `seal3d_tpu_torch.gui`. The
+config schema is the reference's `seal.json`, parsed with the standard
+library: `//` comments and trailing commas of json5 files are stripped,
+other json5 syntax is refused by the parser.
 """
 
 from __future__ import annotations

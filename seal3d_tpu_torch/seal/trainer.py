@@ -488,6 +488,24 @@ class SealTrainer(Trainer):
         return (lambda: self.update_grid_hacked(full=True),
                 lambda: self.update_grid_hacked(full=False))
 
+    def start_finetune(self):
+        """Stage 2's set-up before its first step (after `proxy_datasets`):
+        a fresh optimizer state over every leaf, a full hacked occupancy
+        refresh and, under the adaptive budget, a march probe and a
+        retune."""
+        self.state = self.state._replace(
+            opt_state=self.optimizer.init(self.state.params))
+        # warm start: the occupancy is sharp, so the budget retune can fire
+        # at the first measured boundary
+        self.cfg.retune_warm = True
+        self.update_grid_hacked(full=True)
+        # the hacked bitfield inflates the sample demand well above the
+        # default bucket: measure it by a march and retune before the first
+        # step
+        if self.cfg.adaptive_budget and self.opts.compaction == "topk":
+            self._seed_mean_count_probe()
+            self._retune_budget()
+
     def restore_grid(self):
         """Drop the force-fill once the edit is distilled: one full
         occupancy refresh against the student's own density, which now
@@ -536,20 +554,8 @@ class SealTrainer(Trainer):
             t_proxy = self.proxy_datasets()
 
         if finetune_steps > 0:
-            # a fresh optimizer state for stage 2 (every leaf, decayed lr)
-            self.state = self.state._replace(
-                opt_state=self.optimizer.init(self.state.params))
-            # warm start: the occupancy is sharp, so the budget retune can
-            # fire at the first measured boundary
-            self.cfg.retune_warm = True
             t0 = time.time()
-            self.update_grid_hacked(full=True)
-            # the hacked bitfield inflates the sample demand well above the
-            # default bucket: measure it by a march and retune before the
-            # first step
-            if self.cfg.adaptive_budget and self.opts.compaction == "topk":
-                self._seed_mean_count_probe()
-                self._retune_budget()
+            self.start_finetune()
             self.train(steps=finetune_steps)
             self.time_inspector["training"].append(time.time() - t0)
             # the edit is baked in: march the real density from here on

@@ -534,8 +534,8 @@ def test_main_dnerf_cli_on_cpu(tmp_path):
     -O eval chunk (2^15 rays, a 24x24 view padded to it, as the reference
     pads). The side-by-side runs hold the update. Checks: a step checkpoint with
     the time grid's keys and the optimizer's three-stage state, finite val
-    PSNR, 8 test renders, the deform net moved by its L1 term; --gui is
-    refused."""
+    PSNR, 8 test renders, the deform net moved by its L1 term; --gui
+    reaches the viewer, which needs dearpygui."""
     ws = str(tmp_path / "ws")
     tr = main_dnerf.main([
         "synthetic_dynamic", "-O", "--dense_render", "--bound", "1.0",
@@ -557,5 +557,11 @@ def test_main_dnerf_cli_on_cpu(tmp_path):
             if f.endswith(".png")]
     assert len(pngs) == 8
     assert tr.state.params["deform_net"][-1]["w"].abs().max() > 0
-    with pytest.raises(NotImplementedError, match="GUI state"):
-        main_dnerf.main(["synthetic_dynamic", "--device", "cpu", "--gui"])
+    # --gui opens the time-aware viewer on the fresh trainer, in place of
+    # the run: without dearpygui, the RuntimeError naming it, and no step
+    with pytest.raises(RuntimeError, match="dearpygui"):
+        main_dnerf.main(["synthetic_dynamic", "--device", "cpu", "--H", "16",
+                         "--W", "16", "--num_views", "2", "--time_size", "4",
+                         "--log2_hashmap_size", "12", "--workspace",
+                         str(tmp_path / "gui"), "--gui"])
+    assert not os.path.exists(str(tmp_path / "gui" / "checkpoints"))

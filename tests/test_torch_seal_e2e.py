@@ -230,13 +230,13 @@ def test_cli_loads_the_latest_teacher_and_pretrains_only(tmp_path,
 
 
 def test_unported_options_raise(tmp_path, monkeypatch, capsys):
-    """The Seal CLI's off-path option (--gui) names its ROADMAP.md item
-    before anything is trained; --error_map is ported and passes the
-    refusal; the card is the default device. The options it refused before
+    """The Seal CLI's --gui opens the editing viewer, which needs dearpygui:
+    without it, the RuntimeError naming it, before anything is trained;
+    --error_map passes the refusal; the card is the default device. The options it refused before
     now run: the default bound 2 (two cascades) with a brush edit and
     --save_mesh, and --dense_render with an anchor edit on a teacher trained
     through the dense oracle."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="dearpygui"):
         main_SealNeRF.main(ARGV + ["--gui"])
     refuse_unported(main_SealNeRF.add_seal_args(common_parser("t"))
                     .parse_args(ARGV + ["--error_map"]))

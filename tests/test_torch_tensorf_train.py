@@ -357,15 +357,16 @@ def test_main_tensorf_cli_on_cpu(tmp_path):
     assert np.isfinite(tr.eval_history[-1]["psnr"])
 
 
-@pytest.mark.parametrize("flag,item", [("--gui", "Other backends and families"),
+@pytest.mark.parametrize("flag,item", [("--gui", "no viewer"),
                                        ("--error_map", "Train step")])
 def test_main_tensorf_refuses_unported_options(flag, item, tmp_path):
-    """--gui is refused, naming its ROADMAP.md item. --error_map, refused
-    while the item 'Train step' was open, is ported: the tiny CLI run with
-    it keeps a per-view error map, refreshed by the steps, in its state and
-    its checkpoint."""
+    """--gui is refused with a ValueError: the reference has no viewer for
+    this CLI (its main_tensoRF parses --gui and ignores it). --error_map,
+    refused while the item 'Train step' was open, is ported: the tiny CLI
+    run with it keeps a per-view error map, refreshed by the steps, in its
+    state and its checkpoint."""
     if flag == "--gui":
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             main_tensoRF.main(["synthetic", "--device", "cpu", flag])
         return
     ws = str(tmp_path / "ws")

@@ -114,8 +114,10 @@ def test_cli_trains_bucket_backend(tmp_path, monkeypatch):
 
 
 def test_unported_options_raise(tmp_path, monkeypatch, capsys):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main_nerf.main(ARGV + ["--gui"])
+    # --gui opens the viewer after the checkpoint load: it needs dearpygui
+    with pytest.raises(RuntimeError, match="dearpygui"):
+        main_nerf.main(ARGV + ["--workspace", str(tmp_path / "gui"),
+                               "--gui"])
     # --clip_text without a usable CLIP exits with the JAX CLI's message
     with pytest.raises(SystemExit, match="--clip_random_init"):
         main_nerf.main(ARGV + ["--clip_text", "a chair", "--rand_pose", "0"])
