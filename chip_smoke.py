@@ -44,7 +44,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    from CUDA events. Also times the per-call stacking copy of the two
    tables and the backward over the dense coarse levels alone;
 9. the bucket train path through the CLI (phase 7's command with
-   `--grid_backend bucket`: T=2^19, 16 levels, F=2 per grid): phase 7's
+   `--grid_backend bucket` and HASH_STEPS steps: T=2^19, 16 levels, F=2
+   per grid): phase 7's
    checks with the hash-encode launch counts (K1 launches 0), then the
    trained params through `export_torch_ngp` / `import_torch_ngp` into a
    fresh params tree: every leaf bit-identical;
@@ -170,7 +171,7 @@ Phases, each of which raises (exit code != 0) when it fails:
    B2_DENSE_STEPS dense train steps from it (2 K1 forwards and 1 backward
    each; K1 against plain on one more) and a full grid update (>= 25 dB);
    (d) `python -m
-   seal3d_tpu_torch.main_nerf synthetic -O --lr 3e-3 --iters 256 --H 128
+   seal3d_tpu_torch.main_nerf synthetic -O --lr 3e-3 --iters 128 --H 128
    --W 128` with the default bound and dt_gamma: finite val PSNR, K1
    launches equal to the field calls;
 19. single-level eval and the dense path at bound 1, on phase 7's state
@@ -232,11 +233,12 @@ Phases, each of which raises (exit code != 0) when it fails:
    imports (the loader then reads through it, else through read_png),
    images bit-identical to the written ones and poses within 1e-5; (c)
    `python -m seal3d_tpu_torch.main_nerf <tree> -O --bound 1.0 --scale
-   1.0 --dt_gamma 0 --min_near 0.05 --max_steps 512 --iters 576`, then the
+   1.0 --dt_gamma 0 --min_near 0.05 --max_steps 512 --iters 288`, then the
    same with --error_map: ms a step after the first 48, launches a step,
    val PSNR on the 4 views (>= 25 dB), K1 launched once a field call, the
    share of error-map cells moved off 0.1, and K1 against its plain
-   version on one more error-map step; (d) the same with --bg_radius 32,
+   version on one more error-map step; (d) on the RGB copy at 576 steps,
+   plain and with --bg_radius 32,
    its val PSNR >= 2 dB above its untrained field's (on this white
    background the net trains below the plain field in both packages), and
    a .pth round trip of its params in the halo layout (apply and
@@ -251,7 +253,7 @@ Phases, each of which raises (exit code != 0) when it fails:
    (a) `python -m seal3d_tpu_torch.main_dnerf synthetic_dynamic -O --bound
    1.0 --dt_gamma 0 --min_near 0.05 --max_steps 512 --H 256 --W 256
    --num_views 48 --views_per_time 4 --time_multires 2 --deform_reg 1e-3
-   --iters 1200` (the 5x128 deform net, 16 levels F=2 at T=2^15 `wrap` on
+   --iters 800` (the 5x128 deform net, 16 levels F=2 at T=2^15 `wrap` on
    K1, 64 time slices): ms a step with and without the time-grid updates
    and s an update (8 slices), K1's launches equal to the field calls (one
    a step, 32 an update, one a rendered chunk) and its backward once a
@@ -261,17 +263,17 @@ Phases, each of which raises (exit code != 0) when it fails:
    an update; a profiled step; K1 against its plain version on one more
    step's warped samples (forward <= 1e-5, backward within BWD_RTOL) and
    on a time-grid update's first chunk (<= 1e-5); (b) the same CLI with
-   `--grid_backend bucket` for 150 steps: the hash-encode launches equal to
+   `--grid_backend bucket` for 100 steps: the hash-encode launches equal to
    the field calls, the loss falls, the deform net moves, and the
    positions' gradient of one step's warped samples through the kernels on
    the card against the CPU plain version (<= 1e-5 of its largest entry);
    (c) `python -m seal3d_tpu_torch.main_CCNeRF synthetic -O --bound 1.0
-   --H 256 --W 256 --iters 1200` (300^3, the CLI's ranks): ms, launches and
+   --H 128 --W 128 --iters 1200` (300^3, the CLI's ranks): ms, launches and
    busy ms a step, val PSNR (>= 2 dB over the untrained field and >= 20
    dB), then `--test --compress 8 16 24 48` (its val PSNR >= 2 dB over the
    untrained) and `--compose` of the run's checkpoint with itself (two
    objects, 8 finite test views at 128x128); (d) `python -m
-   seal3d_tpu_torch.main_sdf synthetic --iters 600` (T=2^19, 16,384 points
+   seal3d_tpu_torch.main_sdf synthetic --iters 300` (T=2^19, 16,384 points
    a step): ms a step, MAE before and after (<= half), the 256^3 mesh's
    vertices. (c) and (d) launch no kernel of the table.
 24. the GUI layer headless (it runs last), on phase 7's teacher (its
@@ -298,8 +300,21 @@ Phases, each of which raises (exit code != 0) when it fails:
    frames at t = 0, 0.5, 1 differ, K1 once a chunk; (e) --gui through
    main_nerf, main_dnerf and main_SealNeRF raises the RuntimeError naming
    dearpygui before a step (where dearpygui imports, (e) is not run).
-The line before the last is the kernel table as JSON (eight rows for the
-nine Pallas call sites: hash_encode_bwd is both K2 and K3's backward; each
+25. the multi-device layer on this one card (it runs last; `parallel_phase`,
+   `[parallel ...]` lines), at the full -O width and bench.py's operating
+   point starting in the flat branch: (a) NCCL at world size 1, 8 steps
+   through the collective code against the same steps without a mesh;
+   (b) dp2 over gloo (two ranks on the card) against one process with
+   pack_shards=2 on the same StepRandom, 16 steps, then 200 with grid
+   updates and val PSNR, and no batch-scale collective in a step's log;
+   (c) dp2 x tp2 on `halo` over gloo (four ranks, K1 over 8 levels a rank):
+   the level-sharded encode against K1 unsharded, 16 steps against (b)'s,
+   no table-sized collective over 'model'. Every rank holds its last
+   step's first K1 launch against the plain version. Gloo ranks sharing a
+   card measure the path's cost and its bytes, not scaling.
+The line before the last is the kernel table as JSON (nine rows for the
+nine Pallas call sites, K1 over a level range twice, on one card and
+across ranks; hash_encode_bwd is both K2 and K3's backward; each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
 computes the same function, that call's time; a row whose own time is
@@ -329,10 +344,11 @@ TOL = 1e-5  # K1 vs plain: fp32 both, summation order only
 # a few thousand terms per row in an order that changes from run to run
 BWD_RTOL = 1e-5
 TRAIN_STEPS = 576
+HASH_STEPS = 384    # phases 9-10's CLI runs, cut from TRAIN_STEPS for time
 MIN_VAL_PSNR = 25.0  # a field with broken gradients stays near 12-15 dB
 MIN_EDIT_PSNR = 25.0  # the student against the mapped teacher, 4 val poses
 SEAL_EPOCHS, SEAL_STEPS = 50, 500   # the recipe's pretrain epochs, finetune
-TOOL_STEPS = 300    # phase 20a-c's finetune steps, cut from SEAL_STEPS
+TOOL_STEPS = 150    # phase 20a-c's finetune steps, cut from SEAL_STEPS
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and
 # fp32 operations/s outside the tensor cores; the bound of a kernel is the
 # larger of its bytes over the first and its operations over the second
@@ -550,7 +566,7 @@ def main(argv=None):
         hash_trainers = {}
         for backend in ("bucket", "pallas"):
             tr, fwd, bwd = train_phase(os.path.join(ws, f"train_{backend}"),
-                                       backend)
+                                       backend, HASH_STEPS)
             pth_round_trip(tr, os.path.join(ws, f"train_{backend}"))
             hash_rows[0]["launches"] += fwd
             hash_rows[1]["launches"] += bwd
@@ -615,8 +631,11 @@ def main(argv=None):
         k4["launches"] += k4_gui
         del dn_tr
         lap("24")
+        torch.cuda.empty_cache()
+        k1_ranks = parallel_phase(dev)
+        lap("25")
     print(f"[time] wall seconds by phase: {json.dumps(seconds)}")
-    kernels = [k1_fwd, k1_bwd, k1_tp, *hash_rows, k4, *k5_rows]
+    kernels = [k1_fwd, k1_bwd, k1_tp, k1_ranks, *hash_rows, k4, *k5_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for row in kernels:
@@ -840,10 +859,10 @@ def k1_bwd_phase(dev):
     return result
 
 
-def train_phase(ws, backend="halo"):
+def train_phase(ws, backend="halo", steps=TRAIN_STEPS):
     """Phase 7 (halo, the -O default), 9 (bucket) or 10 (pallas) -> (the
     trainer, forward launches, backward launches) of the backend's kernels
-    over the CLI training run."""
+    over the CLI training run of `steps` steps."""
     from seal3d_tpu_torch import main_nerf
     from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_bwd
     from seal3d_tpu_torch.ops.hash_encode import hash_encode, hash_encode_bwd
@@ -855,7 +874,7 @@ def train_phase(ws, backend="halo"):
     tag = "[train]" if backend == "halo" else f"[train {backend}]"
     argv = ["synthetic", "-O", "--bound", "1.0", "--dt_gamma", "0",
             "--min_near", "0.05", "--max_steps", "512", "--iters",
-            str(TRAIN_STEPS), "--H", "256", "--W", "256", "--device", "cuda",
+            str(steps), "--H", "256", "--W", "256", "--device", "cuda",
             "--workspace", ws]
     if backend != "halo":
         argv += ["--grid_backend", backend]
@@ -893,7 +912,7 @@ def train_phase(ws, backend="halo"):
     step_ms = st["window_s"] / st["window_steps"] * 1e3
     rays_s = tr.cfg.num_rays * st["window_steps"] / st["window_s"]
     g = tr.fcfg.grid
-    print(f"{tag} main_nerf {TRAIN_STEPS} steps at 256x256, grid "
+    print(f"{tag} main_nerf {steps} steps at 256x256, grid "
           f"{g.backend}/{g.gridtype} T=2^{g.log2_hashmap_size} "
           f"({g.total_params} rows): {cli_s:.2f} s in all (data, training, "
           f"eval, 8 test renders)")
@@ -908,25 +927,25 @@ def train_phase(ws, backend="halo"):
           f"{[h['step'] for h in tr.history]}")
     check(len(losses) >= 2 and losses[-1] < losses[0],
           f"{backend}: the loss did not fall: {losses}")
-    ckpt = os.path.join(ws, "checkpoints", f"ngp_step{TRAIN_STEPS:07d}.npz")
+    ckpt = os.path.join(ws, "checkpoints", f"ngp_step{steps:07d}.npz")
     with np.load(ckpt) as data:
         keys = [k for k in data.files if k.startswith("opt_state/")]
         counts = [int(data["opt_state/0/count"]), int(data["opt_state/1/count"])]
     print(f"{tag} {os.path.basename(ckpt)}: {len(keys)} opt_state arrays, "
           f"counts {counts}")
-    check(counts == [TRAIN_STEPS] * 2 and len(keys) == 2 * 7 + 2,
+    check(counts == [steps] * 2 and len(keys) == 2 * 7 + 2,
           f"{backend}: checkpoint optimizer state: {len(keys)} keys, counts "
           f"{counts}")
     n_full, n_part = len(full), len(part)
     chunks = sum(s["chunks_rendered"] for s in tr.render_stats)
-    field_calls = TRAIN_STEPS + grid_field_calls(grid, 1) + chunks
+    field_calls = steps + grid_field_calls(grid, 1) + chunks
     print(f"{tag} {own} launches: backward {bwd} (train steps "
-          f"{TRAIN_STEPS}), forward {fwd} (field calls {field_calls}: "
-          f"{TRAIN_STEPS} steps, {n_full}x16 + {n_part}x3 grid-update chunks, "
+          f"{steps}), forward {fwd} (field calls {field_calls}: "
+          f"{steps} steps, {n_full}x16 + {n_part}x3 grid-update chunks, "
           f"{chunks} rendered eval/test chunks); other kernels "
           f"(forward, backward) {others}")
-    check(bwd == TRAIN_STEPS, f"{own} bwd launches {bwd} != steps "
-                              f"{TRAIN_STEPS}")
+    check(bwd == steps, f"{own} bwd launches {bwd} != steps "
+                              f"{steps}")
     check(fwd == field_calls, f"{own} fwd launches {fwd} != field calls "
                               f"{field_calls}")
     check(all(n == 0 for c in others.values() for n in c),
@@ -957,6 +976,9 @@ def train_phase(ws, backend="halo"):
 # 100 / 200 train / val / test views to 100 / 4 / 2
 BLENDER_VIEWS = {"train": 100, "val": 4, "test": 2}
 BLENDER_HW = 800
+# (c)'s two RGBA runs (plain, --error_map), cut from steps for time;
+# (d)'s RGB pair keeps steps, the background-net gap's reference
+BLENDER_C_STEPS = 288
 BG_RADIUS = 32.0
 TERM_ROUNDS = (2, 4)
 # (d): the background net's cost on the tree's RGB copy (plain minus
@@ -1027,7 +1049,7 @@ def png_filter_rows(path) -> list:
     return np.bincount(rows, minlength=5).tolist()
 
 
-def blender_cli(argv, tag, min_psnr=MIN_VAL_PSNR):
+def blender_cli(argv, tag, min_psnr=MIN_VAL_PSNR, steps=TRAIN_STEPS):
     """main_nerf on the Blender tree with the kernel counts set to 0 just
     before and read just after -> (trainer, K1 forward, K1 backward
     launches). Prints ms a step after the warm-up steps, launches a step,
@@ -1048,22 +1070,22 @@ def blender_cli(argv, tag, min_psnr=MIN_VAL_PSNR):
     st = tr.train_stats
     step_ms = st["window_s"] / st["window_steps"] * 1e3
     chunks = sum(s["chunks_rendered"] for s in tr.render_stats)
-    field_calls = (TRAIN_STEPS + grid_field_calls(st["grid_updates"], 1)
+    field_calls = (steps + grid_field_calls(st["grid_updates"], 1)
                    + chunks)
     psnr_db = tr.eval_history[-1]["psnr"]
     prof = profile_steps(tr, n=3)
     hw = f"{BLENDER_HW}x{BLENDER_HW}"
-    print(f"[blender {tag}] main_nerf {TRAIN_STEPS} steps on "
+    print(f"[blender {tag}] main_nerf {steps} steps on "
           f"{len(tr.dataset)} {hw} views: {cli_s:.2f} s in all (load, "
           f"train, eval, test renders); steps {TIMING_WARMUP + 1}-"
-          f"{TRAIN_STEPS}: {step_ms:.3f} ms a step (grid updates included); "
+          f"{steps}: {step_ms:.3f} ms a step (grid updates included); "
           f"{prof['launches']:.0f} launches and {prof['busy_ms']:.3f} ms of "
           f"device time a step (flat_frac {tr.opts.flat_frac}); val PSNR "
           f"{psnr_db:.2f} dB over {BLENDER_VIEWS['val']} views at {hw}")
     print(f"[blender {tag}] K1 launches: backward {bwd} (train steps "
-          f"{TRAIN_STEPS}), forward {fwd} (field calls {field_calls}, "
+          f"{steps}), forward {fwd} (field calls {field_calls}, "
           f"{chunks} rendered eval/test chunks); the other kernels {counts}")
-    check(bwd == TRAIN_STEPS, f"{tag}: K1 bwd launches {bwd} != steps")
+    check(bwd == steps, f"{tag}: K1 bwd launches {bwd} != steps")
     check(fwd == field_calls, f"{tag}: K1 fwd launches {fwd} != field "
                               f"calls {field_calls}")
     check(not any(counts.values()), f"{tag}: other kernels ran: {counts}")
@@ -1178,17 +1200,21 @@ def blender_runs(dev, ws, root, rgb_root):
                                                    flatten_tree,
                                                    import_torch_ngp, map_tree)
 
-    recipe = ["-O", "--bound", "1.0", "--scale", "1.0", "--dt_gamma", "0",
-              "--min_near", "0.05", "--max_steps", "512", "--iters",
-              str(TRAIN_STEPS), "--device", "cuda"]
-    argv = [root] + recipe
+    def recipe(steps):
+        return ["-O", "--bound", "1.0", "--scale", "1.0", "--dt_gamma", "0",
+                "--min_near", "0.05", "--max_steps", "512", "--iters",
+                str(steps), "--device", "cuda"]
+
     launches = np.zeros(2, np.int64)
     # (c) without and with the error map, on random backgrounds
-    tr_c, *n = blender_cli(argv + ["--workspace", os.path.join(ws, "bl_c")],
-                           "plain")
+    argv_c = [root] + recipe(BLENDER_C_STEPS)
+    tr_c, *n = blender_cli(argv_c + ["--workspace",
+                                     os.path.join(ws, "bl_c")], "plain",
+                           steps=BLENDER_C_STEPS)
     launches += n
-    tr_e, *n = blender_cli(argv + ["--error_map", "--workspace",
-                                   os.path.join(ws, "bl_em")], "error_map")
+    tr_e, *n = blender_cli(argv_c + ["--error_map", "--workspace",
+                                     os.path.join(ws, "bl_em")], "error_map",
+                           steps=BLENDER_C_STEPS)
     launches += n
     emap = tr_e.state.error_map
     moved = float((emap != 0.1).float().mean())
@@ -1204,7 +1230,7 @@ def blender_runs(dev, ws, root, rgb_root):
     # (d) the background net on the RGB copy (the net paints the pixels
     # that RGBA's random backgrounds would fill), gated on its PSNR cost
     # against the plain field on the same copy
-    argv_d = [rgb_root] + recipe
+    argv_d = [rgb_root] + recipe(TRAIN_STEPS)
     tr_p, *n = blender_cli(argv_d + ["--workspace",
                                      os.path.join(ws, "bl_rgb")], "rgb")
     launches += n
@@ -2101,7 +2127,7 @@ def edit_gates(dev, st, teacher_ckpt, val, tag, gate=True,
 BRUSH = {"normal": [0.0, 1.0, 0.0], "brushPressure": 0.05, "brushDepth": 1.0,
          "attenuationDistance": 0.05, "attenuationMode": "linear"}
 BOX_TOP = dict(x=(-0.35, -0.05), z=(-0.40, -0.15), y=-0.27)
-B2_EDIT_EPOCHS, B2_EDIT_STEPS = 50, 300     # phase 20d's API edit
+B2_EDIT_EPOCHS, B2_EDIT_STEPS = 50, 150     # phase 20d's API edit
 B2_CLI_EPOCHS, B2_CLI_STEPS = 20, 100       # phase 20d's Seal CLI at bound 2
 MESH_RES = 256
 
@@ -2473,7 +2499,7 @@ def mesh_phase(dev, ws, teacher_ckpt, student):
 # box), cut from 1500 / (300, 500, 700, 900, 1100) when phase 23 came
 TF_STEPS = 1200
 TF_UPSAMPLE = (250, 450, 650, 850, 1100)
-TF_SEAL_EPOCHS, TF_SEAL_STEPS = 15, 200     # phase 21c, cut from 50 / 500
+TF_SEAL_EPOCHS, TF_SEAL_STEPS = 10, 120     # phase 21c, cut from 50 / 500
 TF_VOXELS = 300**3                          # the CLI's --resolution1 cubed
 MIN_TF_PSNR = 20.0      # phase 21a, 4 val views at 256x256
 CP_STEPS, CP_UPSAMPLE, MIN_CP_GAIN_DB = 300, 150, 2.0   # phase 21b
@@ -2702,11 +2728,13 @@ DN_ARGV = ["synthetic_dynamic", "-O", "--bound", "1.0", "--dt_gamma", "0",
            "--min_near", "0.05", "--max_steps", "512", "--H", "256", "--W",
            "256", "--num_views", "48", "--views_per_time", "4",
            "--time_multires", "2", "--deform_reg", "1e-3"]
-DN_STEPS, DN_BUCKET_STEPS = 1200, 150     # 23a on K1, 23b on `bucket`
+DN_STEPS, DN_BUCKET_STEPS = 800, 100      # 23a on K1, 23b on `bucket`
 DN_GRID_CALLS = 8 * 4   # a time-grid update: 8 slices of 2^19 points, 2^17
-CC_ARGV = ["synthetic", "-O", "--bound", "1.0", "--H", "256", "--W", "256"]
+# CCNeRF's views at 128x128, cut from 256x256 for time: its renders (4
+# evaluations, 16 test views) were a fifth of phase 23 at 256x256
+CC_ARGV = ["synthetic", "-O", "--bound", "1.0", "--H", "128", "--W", "128"]
 CC_STEPS, CC_COMPRESS = 1200, ("8", "16", "24", "48")
-SDF_STEPS = 600
+SDF_STEPS = 300
 MIN_FAMILY_GAIN_DB = 2.0   # over the untrained field (tests/test_dnerf.py,
 MIN_DN_PSNR = 18.0         # tests/test_ccnerf.py); absolute floors from
 MIN_CC_PSNR = 20.0         # PERF.md's PR 12 prediction
@@ -2944,7 +2972,7 @@ def ccnerf_phase(dev, ws):
     del fresh
     psnr1 = tr.eval_history[-1]["psnr"]
     prof = profile_steps(tr)
-    print(f"[ccnerf] main_CCNeRF {CC_STEPS} steps at 256x256 (300^3, ranks "
+    print(f"[ccnerf] main_CCNeRF {CC_STEPS} steps at 128x128 (300^3, ranks "
           f"vd {tr.fcfg.rank_vec_density} md {tr.fcfg.rank_mat_density} vc "
           f"{tr.fcfg.rank_vec} mc {tr.fcfg.rank_mat}, K=3 residual outputs "
           f"a sample, 128 samples a ray): {wall:.2f} s in all; "
@@ -2971,10 +2999,10 @@ def ccnerf_phase(dev, ws):
     del cmp
     ckpt = os.path.join(ws, "checkpoints", f"ccnerf_step{CC_STEPS:07d}.npz")
     t0 = time.perf_counter()
-    # the composed scene's renders at 128x128: only their finiteness is read
-    cps = main_CCNeRF.main(CC_ARGV + ["--H", "128", "--W", "128", "--test",
-                                      "--ckpt", ckpt, "--compose", ckpt,
-                                      "--workspace", os.path.join(ws, "cps")])
+    # the composed scene's renders: only their finiteness is read
+    cps = main_CCNeRF.main(CC_ARGV + ["--test", "--ckpt", ckpt, "--compose",
+                                      ckpt, "--workspace",
+                                      os.path.join(ws, "cps")])
     n_obj = len(cps.state.params["objects"])
     print(f"[ccnerf] --compose {os.path.basename(ckpt)}: "
           f"{time.perf_counter() - t0:.2f} s, {n_obj} objects, "
@@ -3642,6 +3670,7 @@ B2_STEPS = 400      # phase 18's timed steps, after TIMING_WARMUP (48)
 # and lr 3e-3 the field leaves a slow first phase between steps ~450 and
 # ~1200 (scripts/probe_bound2_steps.py; PERF.md section 6)
 B2_GATE_STEPS = 1200
+B2_CLI_ITERS = 128  # phase 18d's CLI run at the default bound, cut from 256
 B2_DENSE_STEPS = 64  # phase 18c's dense steps before the oracle comparison
 MIN_PARITY_DB = 25.0  # bench.py's own structural-collapse line, a gate here
 
@@ -3879,17 +3908,18 @@ def bound2_phase(dev, ws):
     torch.cuda.empty_cache()
 
     # --- (d) the CLI at its default bound (2.0) and dt_gamma (1/128)
-    argv = ["synthetic", "-O", "--lr", "3e-3", "--iters", "256", "--H", "128",
-            "--W", "128", "--device", "cuda", "--workspace",
+    argv = ["synthetic", "-O", "--lr", "3e-3", "--iters", str(B2_CLI_ITERS),
+            "--H", "128", "--W", "128", "--device", "cuda", "--workspace",
             os.path.join(ws, "bound2_cli")]
     t0 = time.perf_counter()
     cli, fwd, bwd = k1_counted(lambda: main_nerf.main(argv))
     sec = time.perf_counter() - t0
     psnr_c = cli.eval_history[-1]["psnr"]
     chunks = sum(s_["chunks_rendered"] for s_ in cli.render_stats)
-    field_calls = 256 + grid_field_calls(cli.train_stats["grid_updates"],
-                                         2) + chunks
-    print(f"[bound2 cli] main_nerf synthetic -O --lr 3e-3 --iters 256 at "
+    field_calls = B2_CLI_ITERS + grid_field_calls(
+        cli.train_stats["grid_updates"], 2) + chunks
+    print(f"[bound2 cli] main_nerf synthetic -O --lr 3e-3 --iters "
+          f"{B2_CLI_ITERS} at "
           f"128x128 (bound {cli.opts.bound}, dt_gamma {cli.opts.dt_gamma}, "
           f"{cli.opts.num_candidates} candidates): {sec:.2f} s in all; val "
           f"PSNR {psnr_c:.2f} dB; K1 launches forward {fwd} (field calls "
@@ -3897,11 +3927,11 @@ def bound2_phase(dev, ws):
     check(cli.opts.bound == 2.0 and cli.opts.dt_gamma == 1 / 128
           and cli.opts.cascades == 2, "the CLI's defaults moved")
     check(np.isfinite(psnr_c), f"the bound-2 CLI's val PSNR: {psnr_c}")
-    check(fwd == field_calls and bwd == 256,
+    check(fwd == field_calls and bwd == B2_CLI_ITERS,
           f"bound-2 CLI: K1 launches {fwd} / {bwd}, field calls "
-          f"{field_calls}, steps 256")
+          f"{field_calls}, steps {B2_CLI_ITERS}")
     cli_ckpt = os.path.join(ws, "bound2_cli", "checkpoints",
-                            "ngp_step0000256.npz")
+                            f"ngp_step{B2_CLI_ITERS:07d}.npz")
     check(os.path.exists(cli_ckpt), f"{cli_ckpt} not written")
     return total_f + fwd, total_b + bwd, err, wide_ckpt, cli_ckpt
 
@@ -4570,6 +4600,281 @@ def gui_cli_phase(ws, teacher_ckpt):
         check("dearpygui" in msg and steps == 0
               and not os.path.exists(os.path.join(out, "checkpoints")),
               f"[gui cli] {name} --gui")
+
+
+
+# phase 25: the multi-device layer on one card. The -O NGP field at full
+# width (two grids stacked at F=4, 16 levels, T=2^15 wrap) at bench.py's
+# operating point (bound 1, max_steps 512, 256 candidates, budget 48, 4096
+# rays), starting in the flat branch (flat_frac 0.5) with warm budget
+# retunes, on the procedural scene. Gloo ranks that share the card measure
+# the path's cost and its collective bytes, not scaling.
+PAR_VIEWS, PAR_HW, PAR_VAL = 24, 128, 4
+PAR_FIRST = 16          # steps after the first grid update, before the next
+PAR_LOOP = 200          # (b)'s steps with grid updates, before val PSNR
+PAR_WORLD1_STEPS = 8    # (a)
+PAR_TIMEOUT = 300.0     # each launch's own timeout
+# dB, (b)'s ranks against the single process after the loop: a sanity
+# bound, not the north star's 0.3 for converged runs; this early, single
+# pairs of runs read 0.03-0.45 dB apart in eight runs (after 216 or 576
+# steps: the atomics' noise through Adam), and a wrong split or reduction
+# shows already in the 16 steps' loss and first-step gradients
+PAR_PSNR_GAP = 1.0
+# `step_agreement`: a run on a mesh against a run without it, the first
+# step's gradients (relative L2) and the params' mean |diff| as a share of
+# their mean |change| over the steps
+PAR_GRAD_TOL = 1e-3
+PAR_PARAM_SHARE = 0.05
+PAR_ENCODE_ROWS = 2**17
+
+
+def parallel_spec(dev):
+    from seal3d_tpu_torch.data.synthetic import SyntheticScene
+    from seal3d_tpu_torch.models.ngp import NGPConfig
+    from seal3d_tpu_torch.render.renderer import RenderOptions
+    from seal3d_tpu_torch.train.trainer import TrainConfig
+
+    scene = SyntheticScene()
+    ds = scene.make_dataset(n_views=PAR_VIEWS, h=PAR_HW, w=PAR_HW, seed=0,
+                            device=dev)
+    val = scene.make_dataset(n_views=PAR_VAL, h=PAR_HW, w=PAR_HW, seed=1,
+                             device=dev)
+    spec = {
+        "fcfg": NGPConfig(bound=1.0, log2_hashmap_size=15,
+                          grid_backend="halo", gridtype="wrap"),
+        "opts": RenderOptions(bound=1.0, dt_gamma=0.0, max_steps=512,
+                              budget_per_ray=48, num_candidates=256,
+                              min_near=0.05, coarse_steps=64, flat_frac=0.5),
+        "tcfg": TrainConfig(lr=1e-2, max_steps=30000, num_rays=4096,
+                            eval_chunk=2**15, eval_budget_per_ray=48,
+                            eval_flat_frac=0.5, random_bg=False,
+                            adaptive_budget=True, retune_warm=True),
+        "dataset": ds, "grid_first": True}
+    return spec, val
+
+
+def mean_diff(a: dict, b: dict) -> float:
+    """Mean |a - b| over every entry of every leaf."""
+    return float(np.concatenate([np.abs(a[k] - v).ravel()
+                                 for k, v in b.items()]).mean())
+
+
+def rel_l2(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every entry of every leaf."""
+    d = np.concatenate([(a[k] - v).ravel() for k, v in b.items()])
+    n = np.concatenate([v.ravel() for v in b.values()])
+    return float(np.linalg.norm(d) / max(np.linalg.norm(n), 1e-30))
+
+
+def step_agreement(r: dict, ref: dict, floor: dict, tag: str, loss_tol):
+    """Hold a run on a mesh (r) against a run without it in this process
+    (ref) on the same StepRandom, beside a run without it in r's process
+    (floor). Two runs differ, the more so in two processes: K1's backward
+    and the composite's backward sum with atomics, the MLP rounds
+    cotangents to bf16 after those sums, and Adam takes a full step on an
+    entry whose gradient is that noise, so that after 8 steps two runs
+    agree to 1e-5 of a leaf's largest entry at a few entries in ten and
+    their mean |diff| varies tenfold between calls. Gates: the loss of
+    every step within loss_tol relative; the first step's gradients within
+    PAR_GRAD_TOL relative (L2 over all leaves; the floor reads ~2e-5); the
+    params' mean |diff| after the steps within PAR_PARAM_SHARE of their
+    mean |change| over the steps. A wrong reduction misses by far more: a
+    lost rank's or a doubled gradient is O(1) off. -> None; prints the
+    numbers."""
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(r["losses"],
+                                                       ref["losses"]))
+    g, g0 = rel_l2(r["grads"], ref["grads"]), rel_l2(floor["grads"],
+                                                     ref["grads"])
+    p, p0 = (mean_diff(r["params"], ref["params"]),
+             mean_diff(floor["params"], ref["params"]))
+    print(f"[parallel {tag}] {len(r['losses'])} steps against no mesh: loss "
+          f"rel {loss_rel:.3e}; first step's gradients rel L2 {g:.3e} (a run "
+          f"without the mesh in the rank's process: {g0:.3e}); params mean "
+          f"|diff| {p:.3e} ({p0:.3e}) against their mean |change| "
+          f"{ref['moved']:.3e}")
+    check(loss_rel <= loss_tol, f"({tag}) loss differs by {loss_rel}")
+    check(g <= PAR_GRAD_TOL, f"({tag}) first-step gradients {g} from the "
+                             f"run without the mesh (floor {g0})")
+    check(p <= PAR_PARAM_SHARE * ref["moved"],
+          f"({tag}) params {p} from the run without the mesh, of a mean "
+          f"change {ref['moved']}")
+
+
+def log_bytes(log) -> int:
+    return sum(c.nbytes for c in log)
+
+
+def parallel_phase(dev):
+    """Phase 25 -> the kernel-table row of K1 over each rank's level range
+    (dp2 x tp2 on one card). (a) NCCL at world size 1: 8 steps through the
+    collective code against the same 8 steps without a mesh
+    (`step_agreement`: the loss 1e-5 relative at every step; the first
+    step's gradients within PAR_GRAD_TOL, the params' mean |diff| within
+    PAR_PARAM_SHARE of their mean |change|, each printed beside a run
+    without the mesh in the rank's process). (b) dp2 over gloo, two ranks
+    on the card, against one process with pack_shards=2 on the same
+    StepRandom: the 16 steps before the second grid update
+    (`step_agreement`, the loss 1e-4 relative), then PAR_LOOP steps with
+    grid updates and val PSNR within PAR_PSNR_GAP; the step log holds no
+    batch-scale collective. (c) dp2 x tp2 on
+    `halo` over gloo, four ranks: the level-sharded encode on 2^17 random
+    rows against K1 unsharded (features 1e-5, each shard's table gradient
+    1e-5 of the largest entry); 16 steps with a finite loss within 1e-3
+    relative of (b)'s; no table-sized collective on 'model'. Every rank
+    holds its last step's first K1 launch against halo_encode_plain
+    (1e-5)."""
+    import dataclasses as dc
+
+    from seal3d_tpu_torch.ops.halo_encode import (halo_encode,
+                                                  halo_encode_levels,
+                                                  halo_encode_plain)
+    from seal3d_tpu_torch.parallel import programs
+    from seal3d_tpu_torch.parallel.launch import launch
+    from seal3d_tpu_torch.parallel.mesh import (find_batch_collectives,
+                                                find_table_collectives)
+    from seal3d_tpu_torch.train.checkpoint import level_shard
+
+    spec, val = parallel_spec(dev)
+    n_rays, cands = spec["tcfg"].num_rays, spec["opts"].num_candidates
+    k1_errs = []
+
+    # --- (a) NCCL, world size 1
+    t0 = time.perf_counter()
+    a_spec = dict(spec, steps=PAR_WORLD1_STEPS, k1_check=True)
+    ref = programs.train_rank(dev, a_spec)
+    ((ref2, a),) = launch(programs.run_all, 1, args=(
+        [(programs.train_rank, a_spec),
+         (programs.train_rank, dict(a_spec, mesh=(1,)))],),
+        backend="nccl", device="cuda", timeout=PAR_TIMEOUT)
+    k1_errs.append(a["k1_err"])
+    print(f"[parallel a] nccl world 1: K1 {a['k1_err']:.3e}; collectives a "
+          f"step {len(a['log'])} ({log_bytes(a['log'])} bytes); "
+          f"{time.perf_counter() - t0:.1f} s")
+    step_agreement(a, ref, ref2, "a", 1e-5)
+
+    # --- (b) dp2 over gloo, two ranks on the card
+    t0 = time.perf_counter()
+    b_spec = dict(spec, steps=PAR_FIRST, loop=PAR_LOOP, eval=val,
+                  k1_check=True)
+    one_spec = dict(b_spec, opts=dc.replace(spec["opts"], pack_shards=2,
+                                            march_two_level=False))
+    one = programs.train_rank(dev, one_spec)
+    runs = launch(programs.run_all, 2, args=(
+        [(programs.train_rank, dict(one_spec, loop=0, eval=None)),
+         (programs.train_rank, dict(b_spec, mesh=(2,)))],),
+        backend="gloo", device="cuda", timeout=PAR_TIMEOUT)
+    b = [r for _, r in runs]
+    r = b[0]
+    k1_step = sum(r["launches"].values()) / r["steps"]
+    print(f"[parallel b] gloo dp2 on one card: after {PAR_LOOP} more steps "
+          f"val PSNR {r['psnr']:.2f} / {b[1]['psnr']:.2f} dB vs one process "
+          f"{one['psnr']:.2f}; {r['step_ms']:.2f} ms a step (one process "
+          f"{one['step_ms']:.2f}), flat_frac {r['loop_flat_frac']}; a step: "
+          f"{len(r['log'])} collectives, {log_bytes(r['log'])} bytes, K1 "
+          f"launches {k1_step:.1f} a rank; {time.perf_counter() - t0:.1f} s")
+    for one2, r in runs:
+        step_agreement(r, one, one2, "b", 1e-4)
+        check(r["pack_shards"] == 2, f"(b) pack_shards {r['pack_shards']}")
+        bad = find_batch_collectives(r["log"], n_rays * cands // 2)
+        k1_errs.append(r["k1_err"])
+        check(abs(r["psnr"] - one["psnr"]) <= PAR_PSNR_GAP,
+              f"(b) val PSNR {r['psnr']:.2f} vs one process "
+              f"{one['psnr']:.2f}")
+        check(not bad, f"(b) batch-scale collectives: {bad}")
+
+    # --- (c) dp2 x tp2 on halo over gloo, four ranks on the card
+    t0 = time.perf_counter()
+    fcfg = dc.replace(spec["fcfg"], grid_shard_levels=True)
+    cfg = fcfg.grid
+    levels, t_rows = cfg.num_levels, 2**cfg.log2_hashmap_size
+    rng = np.random.default_rng(25)
+    m = PAR_ENCODE_ROWS
+    enc = {"cfg": cfg, "mesh": (2, 2),
+           "table": rng.uniform(-1, 1, (levels * t_rows, 4)).astype(
+               np.float32),
+           "x": rng.uniform(0, 1, (m, 3)).astype(np.float32),
+           "valid": rng.uniform(size=m) >= 0.25,
+           "g": rng.uniform(-1, 1, (m, levels * 4)).astype(np.float32)}
+    c_spec = dict(spec, fcfg=fcfg, steps=PAR_FIRST, k1_check=True,
+                  mesh=(2, 2))
+    c = launch(programs.run_all, 4, args=([(programs.encode_rank, enc),
+                                           (programs.train_rank, c_spec)],),
+               backend="gloo", device="cuda", timeout=PAR_TIMEOUT)
+    whole = torch.from_numpy(enc["table"]).to(dev).requires_grad_()
+    xw = torch.from_numpy(enc["x"]).to(dev)
+    vw = torch.from_numpy(enc["valid"]).to(dev)
+    ref_out = halo_encode(whole, xw, vw, cfg).reshape(m, -1)
+    ref_out.backward(torch.from_numpy(enc["g"]).to(dev))
+    ref_out = ref_out.detach().cpu().numpy()
+    ref_grad = whole.grad.cpu().numpy()
+    scale = float(np.abs(ref_grad).max())
+    per = levels // 2
+    feat_err = grad_err = loss_rel = 0.0
+    launches, tables, finite = 0, [], True
+    for e, r in c:
+        i, j = e["coords"]
+        rows = slice(i * m // 2, (i + 1) * m // 2)
+        feat_err = max(feat_err, float(np.abs(e["out"] - ref_out[rows]).max()))
+        shard = ref_grad[j * per * t_rows:(j + 1) * per * t_rows]
+        grad_err = max(grad_err, float(np.abs(e["grad"] - shard).max()))
+        tables.extend(find_table_collectives(e["log"] + r["log"],
+                                             levels * t_rows, 2))
+        finite = finite and all(np.isfinite(r["losses"]))
+        loss_rel = max([loss_rel] + [abs(x - y) / abs(y) for x, y in
+                                     zip(r["losses"], b[0]["losses"])])
+        k1_errs.append(r["k1_err"])
+        launches += r["launches"]["halo_encode_levels"]
+    e0, r0 = c[0]
+    model_bytes = sum(x.nbytes for x in r0["log"] if x.axis == "model")
+    print(f"[parallel c] gloo dp2 x tp2 (halo, 8 levels a rank): encode of "
+          f"{m} rows features max_abs_err {feat_err:.3e}, shard gradients "
+          f"{grad_err:.3e} (rel {grad_err / scale:.3e}); {PAR_FIRST} steps "
+          f"loss rel to (b) {loss_rel:.3e}; a step: {len(r0['log'])} "
+          f"collectives, {log_bytes(r0['log'])} bytes ({model_bytes} over "
+          f"'model'), level-range K1 launches "
+          f"{r0['launches']['halo_encode_levels'] / r0['steps']:.1f} a rank; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(feat_err <= TOL, f"(c) sharded features differ by {feat_err}")
+    check(grad_err <= BWD_RTOL * scale,
+          f"(c) shard gradients differ by {grad_err} of {scale}")
+    check(finite, "(c) non-finite loss")
+    check(loss_rel <= 1e-3, f"(c) loss differs from (b)'s by {loss_rel}")
+    check(not tables, f"(c) table-sized collectives over 'model': {tables}")
+    check(max(k1_errs) <= TOL, f"a rank's K1 disagrees with plain: "
+                               f"{max(k1_errs)}")
+
+    # the kernel's row: a rank's level-range forward on the rows and levels
+    # its last step handed K1
+    case = r0["k1_case"]
+    rng_ = case["levels"]
+    full = np.concatenate([r0["params"]["encoder"],
+                           r0["params"]["encoder_color"]], -1)
+    table = torch.from_numpy(np.ascontiguousarray(level_shard(
+        torch.from_numpy(full), cfg, 2, rng_.start // per).numpy())).to(dev)
+    x = torch.from_numpy(case["x"]).to(dev)
+    valid = (None if case["valid"] is None
+             else torch.from_numpy(case["valid"]).to(dev))
+    with torch.no_grad():
+        err = float((halo_encode_levels(table, x, valid, cfg, rng_.start,
+                                        len(rng_))
+                     - halo_encode_plain(table, x, valid, cfg, rng_))
+                    .abs().max())
+        ms = time_device_ms(lambda: halo_encode_levels(
+            table, x, valid, cfg, rng_.start, len(rng_)))
+        plain_ms = busy_ms(lambda: halo_encode_plain(table, x, valid, cfg,
+                                                     rng_))
+    n_valid = x.shape[0] if valid is None else int(valid.sum())
+    print(f"[parallel k1] a rank's level range {rng_.start}-{rng_.stop - 1}"
+          f" on its step's {x.shape[0]} rows ({n_valid} valid): "
+          f"{ms:.4f} ms device, plain {plain_ms:.3f} ms")
+    return {"name": "halo_encode_levels (dp2 x tp2 ranks)", "route": "cuda",
+            "source": "seal3d_tpu_torch/csrc/halo_encode.cu",
+            "replaces": "seal3d_tpu/ops/pallas/halo_encode.py:497",
+            "launches": launches,
+            "max_abs_err": max(err, feat_err, *k1_errs),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **encode_bound(x.shape[0], n_valid, len(rng_), 4,
+                           table.shape[0], valid_bytes=1)}
 
 
 if __name__ == "__main__":

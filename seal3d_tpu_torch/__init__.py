@@ -8,6 +8,13 @@ Pallas kernel of the ported path is a hand-written Hopper kernel under
 ctypes. On a CPU tensor a kernel wrapper runs the kernel's plain PyTorch
 version instead; on a CUDA tensor it launches the kernel or raises.
 
+Scaling is data and tensor parallelism over `torch.distributed`, one
+process a rank (parallel/): ray batches sliced over a 'data' axis with a
+flat pack per rank and replicated fields, the hash-grid level stack
+optionally sliced over a 'model' axis, and the collectives written out
+(all_reduce and broadcast, logged a step) in place of the reference's
+`jax.sharding.Mesh` and XLA-inserted collectives.
+
 Numerics: the reference computes in float32 (bf16 only where it says so), so
 TF32 is switched off for float32 matmuls and cuDNN convolutions here — both
 would otherwise keep only ~10 mantissa bits on the card.

@@ -1,7 +1,8 @@
 """Dataset provider: instant-ngp / Blender / COLMAP `transforms*.json` scenes.
 
 A numpy-only copy of seal3d_tpu/data/provider.py (the port never imports the
-JAX package); the debug pose plot is left out.
+JAX package), with its debug pose plot (`visualize_poses`, matplotlib
+imported inside it).
 
 Equivalent of reference NeRFDataset (nerf/provider.py:94-332): pose loading +
 `nerf_matrix_to_ngp` conversion, image loading (RGBA kept), downscale,
@@ -204,6 +205,28 @@ def rand_poses(rng: np.random.Generator, size: int, radius: float = 1.0,
         pose[:3, 3] = c
         poses.append(pose)
     return np.stack(poses)
+
+
+def visualize_poses(poses, size: float = 0.1, out_path: str = "poses.png"):
+    """Debug plot of camera frames (the reference's visualize_poses): each
+    pose's x, y, z axes as red, green and blue arrows of length `size` from
+    its origin, a matplotlib 3-D quiver saved to `out_path` (returned)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure()
+    ax = fig.add_subplot(projection="3d")
+    for pose in np.asarray(poses):
+        o = pose[:3, 3]
+        for axis, color in zip(range(3), "rgb"):
+            d = pose[:3, axis] * size
+            ax.quiver(o[0], o[1], o[2], d[0], d[1], d[2], color=color)
+    ax.set_box_aspect([1, 1, 1])
+    fig.savefig(out_path, dpi=100)
+    plt.close(fig)
+    return out_path
 
 
 @dataclass

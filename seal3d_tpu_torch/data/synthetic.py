@@ -2,9 +2,9 @@
 `SyntheticScene` of seal3d_tpu/data/synthetic.py): colored blobs, a box and
 a torus inside [-bound, bound]^3, rendered with the dense compositor;
 `WideSyntheticScene`, its bound-2 variant with content outside [-1, 1]^3;
-and `DynamicSyntheticScene`, a ball swinging on an arc over a box as time
-runs over [0, 1] (D-NeRF's scene). The hard variant is not on the ported
-path.
+`DynamicSyntheticScene`, a ball swinging on an arc over a box as time
+runs over [0, 1] (D-NeRF's scene); and `HardSyntheticScene`, thin structures
+and a high-frequency texture for table-capacity comparisons.
 """
 
 from __future__ import annotations
@@ -113,6 +113,68 @@ class SyntheticScene:
         return NeRFDataset(poses=poses.astype(np.float32),
                            images=np.stack(images), intrinsics=intr, h=h, w=w,
                            radius=radius)
+
+
+@dataclass(frozen=True)
+class HardSyntheticScene(SyntheticScene):
+    """Lego-like frequency content with no smooth shortcut: a studded base
+    plate (a 7x7 grid of sphere caps), four thin pillars under a top frame
+    (struts 4.4 cm wide), a thin-shell wheel and a 3-D checker and stripe
+    texture at ~15 cycles a unit. Small hash tables underfit it visibly."""
+
+    density_scale: float = 90.0
+    gt_steps: int = 768  # thin structures need a finer ground-truth ladder
+
+    def density(self, x: torch.Tensor) -> torch.Tensor:
+        k = 220.0  # much sharper edges than the base scene
+
+        def sd_box(c, half):
+            q = (x - _const(x, c)).abs() - _const(x, half)
+            return (torch.linalg.norm(q.clamp(min=0.0), dim=-1)
+                    + q.amax(-1).clamp(max=0.0))
+
+        def occ(d):
+            return torch.sigmoid(-k * d)
+
+        total = occ(sd_box([0.0, -0.42, 0.0], [0.5, 0.03, 0.5]))  # plate
+        pitch = 0.125    # studs: fold x and z into the nearest grid cell
+        gx = torch.clamp(torch.round(x[..., 0] / pitch), -3, 3) * pitch
+        gz = torch.clamp(torch.round(x[..., 2] / pitch), -3, 3) * pitch
+        stud = torch.stack([x[..., 0] - gx, x[..., 1] + 0.37,
+                            x[..., 2] - gz], -1)
+        total = total + occ(torch.linalg.norm(stud, dim=-1) - 0.040)
+        for sx in (-0.38, 0.38):     # pillars
+            for sz in (-0.38, 0.38):
+                total = total + occ(sd_box([sx, -0.05, sz],
+                                           [0.022, 0.34, 0.022]))
+        for sx in (-0.38, 0.38):     # top frame
+            total = total + occ(sd_box([sx, 0.29, 0.0], [0.022, 0.022, 0.4]))
+            total = total + occ(sd_box([0.0, 0.29, sx], [0.4, 0.022, 0.022]))
+        # the wheel: a torus tilted 45 degrees about x
+        pr = torch.stack([x[..., 0],
+                          (x[..., 1] + x[..., 2]) * 0.70710678,
+                          (x[..., 2] - x[..., 1]) * 0.70710678], -1)
+        q = torch.stack([torch.sqrt(pr[..., 0] ** 2 + pr[..., 2] ** 2) - 0.26,
+                         pr[..., 1]], -1)
+        total = total + occ(torch.linalg.norm(q, dim=-1) - 0.028)
+        return self.density_scale * total.clamp(0.0, 1.0)
+
+    def color(self, x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+        """A 3-D checker and stripes over a position-keyed palette, with
+        the base scene's view sheen."""
+        checker = (torch.sin(47.0 * x[..., 0]) * torch.sin(43.0 * x[..., 1])
+                   * torch.sin(53.0 * x[..., 2]))
+        stripes = torch.sin(89.0 * (x[..., 0] + x[..., 2]))
+        base = torch.stack([0.5 + 0.28 * torch.tanh(6.0 * checker),
+                            0.5 + 0.28 * torch.tanh(6.0 * stripes),
+                            0.5 + 0.4 * torch.sin(3.0 * x[..., 1] + 2.0)],
+                           dim=-1)
+        sheen = 0.1 * (0.5 + 0.5 * d[..., 1])
+        return (base + sheen[..., None]).clamp(0.0, 1.0)
+
+    def render_rays(self, rays_o, rays_d, num_steps=None, bg: float = 1.0):
+        return SyntheticScene.render_rays(
+            self, rays_o, rays_d, num_steps=num_steps or self.gt_steps, bg=bg)
 
 
 @dataclass(frozen=True)

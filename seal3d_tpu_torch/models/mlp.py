@@ -5,7 +5,11 @@ The reference runs every matmul with bf16 operands and fp32 accumulation
 by rounding inputs, weights and hidden activations to bf16 and multiplying
 the rounded values in fp32: a product of two bf16 values is exact in fp32, so
 only the summation order differs. (`torch.matmul` on bf16 tensors would
-round its output to bf16 as well, which the reference does not.)
+round its output to bf16 as well, which the reference does not.) The casts'
+backwards round the cotangents to bf16 too, as the reference's do. Under a
+data mesh the reference rounds a weight's cotangent after the partitioned
+step's sum over 'data'; here too (`_Bf16Weight`), so n ranks give the one
+process's weight gradients up to summation order.
 """
 
 from __future__ import annotations
@@ -33,12 +37,41 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
+class _Bf16Weight(torch.autograd.Function):
+    """A weight rounded to bf16, whose cotangent is summed over the mesh's
+    'data' axis before it is rounded: the backward returns bf16(sum) / n,
+    so that the trainer's own sum over 'data' divided by n (reduce_step)
+    leaves bf16 of the global batch's gradient."""
+
+    @staticmethod
+    def forward(ctx, w, mesh):
+        ctx.mesh = mesh
+        return _bf16(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        from seal3d_tpu_torch.parallel.mesh import collective
+
+        s = collective("all_reduce", g.contiguous().clone(), ctx.mesh,
+                       "data", "mlp_grads")
+        return _bf16(s) / ctx.mesh.size("data"), None
+
+
+def _bf16_weight(w: torch.Tensor) -> torch.Tensor:
+    from seal3d_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or mesh.size("data") == 1 or not w.requires_grad:
+        return _bf16(w)
+    return _Bf16Weight.apply(w, mesh)
+
+
 def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     """ReLU hidden layers, linear fp32 output."""
     h = _bf16(x)
     n = len(params)
     for i, layer in enumerate(params):
-        h = h @ _bf16(layer["w"])
+        h = h @ _bf16_weight(layer["w"])
         if i != n - 1:
             h = _bf16(torch.relu(h))
     return h

@@ -23,6 +23,7 @@ from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig, hashgrid_encode,
                                            hashgrid_init)
 from seal3d_tpu_torch.ops.sh import sh_encode, sh_encode_dim
 from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
+from seal3d_tpu_torch.train.checkpoint import map_tree
 
 
 @dataclass(frozen=True)
@@ -125,6 +126,16 @@ def apply(params, cfg: NGPConfig, x: torch.Tensor, d: torch.Tensor,
     hc = torch.cat([d_enc, h[..., 1:], c_enc], dim=-1)
     rgb = torch.sigmoid(mlp_apply(params["color_net"], hc))
     return sigma, rgb
+
+
+def param_lr_scales(params, encoder_scale: float = 1.0,
+                    net_scale: float = 1.0):
+    """Per-leaf learning-rate multipliers shaped like params: encoder_scale
+    for every top-level key whose name holds "encoder", net_scale for the
+    rest (the reference's get_params groups; both 1 by default)."""
+    return {k: map_tree(v, lambda _, t, s=(encoder_scale if "encoder" in k
+                                           else net_scale): s)
+            for k, v in params.items()}
 
 
 def background(params, cfg: NGPConfig, sph: torch.Tensor,

@@ -24,10 +24,13 @@ the plain versions below only by summation order.
 `halo_encode` and `halo_encode_levels` are differentiable in the table
 through `_HaloEncode`. Both of its halves dispatch on the tensors' device:
 the plain version for CPU tensors, the kernel for CUDA tensors (no fallback).
-`halo_encode_sharded` is the single-card form of the reference's
+`halo_encode_sharded` is the single-device form of the reference's
 level-sharded tensor-parallel encode: it runs every shard's program on this
-card, one after another. The collectives of the multi-card form (one feature
-all-gather over 'model', one gradient sum over 'data') are not written.
+device, one after another, and is the plain reference of the multi-rank
+form. That form is `hashgrid.encode_level_shard` under a 'data' x 'model'
+mesh (parallel/mesh.py): each rank runs `halo_encode_levels` on its rows
+and levels, the features are exchanged over 'model' and the table
+gradients summed over 'data' by the trainer.
 """
 
 from __future__ import annotations
@@ -187,9 +190,9 @@ def halo_encode_sharded(master: torch.Tensor, x: torch.Tensor,
     valid) its rows over `n_data`; shard (i, j) runs `halo_encode_levels`
     on rows i and levels j. Features concatenate over 'model' and rows over
     'data'; table gradients sum over 'data' (autograd accumulates them into
-    the shard's slice of `master`). The multi-card form calls the same
-    per-shard program on each rank and replaces the two concatenations and
-    the sum by collectives."""
+    the shard's slice of `master`). The multi-rank form
+    (`hashgrid.encode_level_shard`) calls the same per-shard program on each
+    rank and replaces the two concatenations and the sum by collectives."""
     levels, m = cfg.num_levels, x.shape[0]
     if levels % n_model != 0:
         raise ValueError(

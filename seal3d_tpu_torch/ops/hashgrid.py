@@ -15,6 +15,9 @@ hand-written kernel (which runs the plain path on a CPU tensor):
 Where the fused encode does not apply (align_corners or input_dim != 3) the
 'pallas' backend takes its unfused branch, as the reference does: corner
 indices and weights in PyTorch, the rows through K5 (ops/lookup.py).
+With shard_levels on 'xla' or 'halo' under an ambient mesh with a 'model'
+axis (parallel/mesh.py), each rank encodes its level shard of the table and
+the features are exchanged across ranks (`encode_level_shard`).
 """
 
 from __future__ import annotations
@@ -297,20 +300,60 @@ def hashgrid_encode(table: torch.Tensor, x: torch.Tensor, cfg: HashGridConfig,
     f_dim = table.shape[-1]
     batch_shape = x.shape[:-1]
     xf = x.reshape(-1, dim).to(torch.float32)
-    if cfg.shard_levels:
-        raise NotImplementedError(
-            "level-sharded tensor parallelism across cards is not ported "
-            "yet: it needs torch.distributed and at least two cards "
-            "(ROADMAP.md Queue 1, the multi-GPU item). The per-shard program "
-            "is ops/halo_encode.py halo_encode_levels; halo_encode_sharded "
-            "runs all shards on one card")
     if cfg.backend not in backends():
         raise ValueError(f"unknown grid backend {cfg.backend!r}")
     backend = backends()[cfg.backend]
     backend.check(cfg)
     vf = None if valid is None else valid.reshape(-1)
-    out = backend.encode(table, xf, vf, cfg)
+    mesh = _model_mesh(cfg)
+    if mesh is not None:
+        out = encode_level_shard(table, xf, vf, cfg, mesh)
+    else:
+        out = backend.encode(table, xf, vf, cfg)
     return out.reshape(*batch_shape, cfg.num_levels * f_dim)
+
+
+def _model_mesh(cfg: HashGridConfig):
+    """The ambient mesh where `cfg` encodes level-sharded across ranks
+    (shard_levels on the 'xla' or 'halo' backend under a mesh whose 'model'
+    axis has more than one rank), else None. Without one, shard_levels
+    encodes the uniform [L*T, F] stack whole, as the reference does without
+    an ambient mesh; the 'pallas' and 'bucket' backends ignore it there
+    too."""
+    if not cfg.shard_levels or cfg.backend not in ("xla", "halo"):
+        return None
+    from seal3d_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    return mesh if mesh is not None and mesh.size("model") > 1 else None
+
+
+def encode_level_shard(table: torch.Tensor, xf: torch.Tensor,
+                       valid: Optional[torch.Tensor], cfg: HashGridConfig,
+                       mesh) -> torch.Tensor:
+    """The level-sharded tensor-parallel encode on model rank j of `mesh`:
+    table [L/n_model * T, F] holds levels [j*L/n, (j+1)*L/n) of the uniform
+    stack; they are encoded on this rank's rows (K1 over the range on
+    'halo', the plain gather on 'xla') and the features exchanged over
+    'model' -> [M, L, F], differentiable in `table` (its gradient is this
+    rank's levels only)."""
+    from seal3d_tpu_torch.ops import halo_encode as k1
+    from seal3d_tpu_torch.parallel.mesh import gather_model
+
+    n_model, j = mesh.size("model"), mesh.index("model")
+    if cfg.num_levels % n_model:
+        raise ValueError(f"num_levels={cfg.num_levels} must divide the mesh "
+                         f"'model' axis (size {n_model}) for level sharding")
+    per = cfg.num_levels // n_model
+    if table.shape[0] != per * 2**cfg.log2_hashmap_size:
+        raise ValueError(f"level-sharded encode: the table has "
+                         f"{table.shape[0]} rows, not its shard's {per} "
+                         f"levels of {2**cfg.log2_hashmap_size}")
+    if cfg.backend == "halo":
+        local = k1.halo_encode_levels(table, xf, valid, cfg, j * per, per)
+    else:
+        local = gather_encode(table, xf, cfg, range(j * per, (j + 1) * per))
+    return gather_model(local, mesh, j * per, cfg.num_levels)
 
 
 def hashgrid_encode_stacked(tables: Sequence[torch.Tensor], x: torch.Tensor,
@@ -353,3 +396,21 @@ def convert_table_layout(table: torch.Tensor, cfg_src: HashGridConfig,
                                                  table.shape[-1]))])
         parts.append(blk)
     return torch.cat(parts)
+
+
+def hashgrid_tv_loss(table: torch.Tensor, cfg: HashGridConfig,
+                     level: int = 0) -> torch.Tensor:
+    """Total-variation regularizer on one dense level: the mean squared
+    difference of neighbouring entries along each axis, summed over axes
+    (the reference's analog of gridencoder's grad_total_variation)."""
+    resolution, offset, _, use_hash, _ = cfg.level_params[level]
+    if use_hash:
+        raise ValueError("TV loss only defined on dense (tiled) levels")
+    n = resolution**cfg.input_dim
+    grid = table[offset:offset + n].reshape((resolution,) * cfg.input_dim
+                                            + (-1,))
+    tv = table.new_zeros(())
+    for axis in range(cfg.input_dim):
+        d = torch.diff(grid, dim=axis)
+        tv = tv + (d * d).mean()
+    return tv

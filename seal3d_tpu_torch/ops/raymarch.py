@@ -539,6 +539,32 @@ def compact_flat_direct(ts, dts, valid, rays_o, rays_d, k: int,
         offsets=starts.clamp(max=budget), counts=kept.clamp(min=0))
 
 
+def compact_flat_sharded(ts, dts, valid, rays_o, rays_d, k: int,
+                         budget: int, shards: int) -> MarchedRays:
+    """`compact_flat_direct` per contiguous ray slice: slice s of the N rays
+    packs into its own budget/shards sub-buffer, its ray_id and offsets
+    moved by the slice's first ray and slot. What a data rank of the
+    reference's mesh packs from its slice of the batch, so a rank marching
+    its slice alone packs its part of this buffer. Under budget the
+    selection equals the global pack's (slice-major is ray-major order);
+    over budget only the Bresenham thinning becomes per slice. Pad slots
+    carry valid=False. N and budget must divide by `shards` (the renderer
+    rounds the budget to a multiple of 128 * shards)."""
+    n = ts.shape[0]
+    if n % shards or budget % shards:
+        raise ValueError(f"compact_flat_sharded: {n} rays and budget "
+                         f"{budget} must divide by {shards} shards")
+    ns, bs = n // shards, budget // shards
+    parts = []
+    for s in range(shards):
+        r = slice(s * ns, (s + 1) * ns)
+        out = compact_flat_direct(ts[r], dts[r], valid[r], rays_o[r],
+                                  rays_d[r], k, bs)
+        parts.append(out._replace(ray_id=out.ray_id + s * ns,
+                                  offsets=out.offsets + s * bs))
+    return MarchedRays(*(torch.cat(f) for f in zip(*parts)))
+
+
 def march_rays_flat(rays_o, rays_d, bitfield, bound: float, cascades: int,
                     dt_gamma: float, max_steps: int, k: int, budget: int,
                     num_candidates: Optional[int] = None,
@@ -546,11 +572,15 @@ def march_rays_flat(rays_o, rays_d, bitfield, bound: float, cascades: int,
                     min_near: float = 0.05,
                     aabb: Optional[torch.Tensor] = None,
                     occ_stride: int = 2,
-                    coarse_steps: int = 0) -> MarchedRays:
+                    coarse_steps: int = 0, shards: int = 1) -> MarchedRays:
     """Occupancy march straight to the flat packed layout (the train fast
-    path; the reference's select='sort', shards=1)."""
+    path; the reference's select='sort'), packed per ray slice where
+    shards > 1 (`compact_flat_sharded`)."""
     ts, dts, valid = march_candidates(
         rays_o, rays_d, bitfield, bound, cascades, dt_gamma, max_steps,
         num_candidates, perturb=perturb, min_near=min_near, aabb=aabb,
         occ_stride=occ_stride, coarse_steps=coarse_steps)
+    if shards > 1:
+        return compact_flat_sharded(ts, dts, valid, rays_o, rays_d, k,
+                                    budget, shards)
     return compact_flat_direct(ts, dts, valid, rays_o, rays_d, k, budget)

@@ -106,10 +106,16 @@ def _background(field, params, cfg, opts: RenderOptions, rays_o, rays_d,
     return bg_color
 
 
+def pack_shards(n: int, opts: RenderOptions) -> int:
+    """Ray slices the flat pack of an n-ray batch is split into: pack_shards
+    where it divides n, else 1 (the reference's fall-back)."""
+    return opts.pack_shards if n % max(opts.pack_shards, 1) == 0 else 1
+
+
 def flat_budget(n: int, opts: RenderOptions) -> int:
-    """Flat sample budget of an n-ray batch (multiple of 128; Python round
-    as in the reference)."""
-    q = 128
+    """Flat sample budget of an n-ray batch: a multiple of 128 times its
+    pack shards (Python round as in the reference)."""
+    q = 128 * max(pack_shards(n, opts), 1)
     return max(int(round(n * opts.budget_per_ray * opts.flat_frac / q)) * q, q)
 
 
@@ -232,17 +238,17 @@ def march_flat(rays_o, rays_d, bitfield, opts: RenderOptions,
             occ_stride=opts.occ_stride, coarse_steps=opts.coarse_steps,
             group=opts.tl_group, over=opts.tl_over, kg=opts.tl_kg,
             pool=opts.tl_pool)
-    if (opts.group_compact or opts.flat_select != "sort" or opts.span_adaptive
-            or opts.pack_shards > 1):
+    if opts.group_compact or opts.flat_select != "sort" or opts.span_adaptive:
         raise NotImplementedError(
-            "group_compact, flat_select='gather', span_adaptive and sharded "
-            "packs are left out of the port (ROADMAP.md, 'Not to port')")
+            "group_compact, flat_select='gather' and span_adaptive are left "
+            "out of the port (ROADMAP.md, 'Not to port')")
     return march_rays_flat(
         rays_o, rays_d, bitfield, bound=opts.bound, cascades=opts.cascades,
         dt_gamma=opts.dt_gamma, max_steps=opts.max_steps, k=k, budget=budget,
         num_candidates=opts.num_candidates, perturb=jitter,
         min_near=opts.min_near, aabb=aabb, occ_stride=opts.occ_stride,
-        coarse_steps=opts.coarse_steps)
+        coarse_steps=opts.coarse_steps,
+        shards=pack_shards(rays_o.shape[0], opts))
 
 
 def render_rays(params, field, cfg, bitfield, rays_o, rays_d,

@@ -114,9 +114,10 @@ class SealTrainer(Trainer):
                  cfg: TrainConfig, mapper: SealMapper, teacher_params,
                  teacher_bitfield, dataset=None, seed: int = 0, device=None,
                  secondary_field=None, secondary_cfg=None,
-                 secondary_params=None, name: str = "seal_student"):
+                 secondary_params=None, name: str = "seal_student",
+                 mesh=None):
         super().__init__(field_mod, field_cfg, opts, cfg, dataset=dataset,
-                         seed=seed, device=device, name=name)
+                         seed=seed, device=device, name=name, mesh=mesh)
         dev = self.device
 
         def on_device(tree):

@@ -27,11 +27,11 @@ from seal3d_tpu_torch.train.trainer import TrainConfig, Trainer
 class CCNeRFTrainer(Trainer):
     def __init__(self, field_cfg: ccnerf.CCNeRFConfig, opts, cfg: TrainConfig,
                  dataset=None, seed: int = 0, device=None,
-                 name: str = "ccnerf", l1_weight: float = 1e-5):
+                 name: str = "ccnerf", l1_weight: float = 1e-5, mesh=None):
         self.l1_weight = l1_weight
         super().__init__(ccnerf, field_cfg, opts, cfg, dataset=dataset,
                          seed=seed, device=device, name=name, use_dense=True,
-                         optimizer=cc_optimizer(cfg.max_steps))
+                         optimizer=cc_optimizer(cfg.max_steps), mesh=mesh)
 
     def loss_fn(self, params, occ: OccupancyState, batch: dict,
                 jitter: Optional[torch.Tensor]):

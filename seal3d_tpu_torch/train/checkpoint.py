@@ -101,6 +101,25 @@ def params_from_jax(tree: Any, device=None) -> Any:
     return torch.from_numpy(np.array(tree)).to(device)
 
 
+def level_shard(table: torch.Tensor, grid_cfg, n_model: int,
+                j: int) -> torch.Tensor:
+    """Rows of model rank j's levels [j*L/n, (j+1)*L/n) of a uniform
+    [L*T, F] table (levels padded to T: shard_levels, 'halo', 'pallas')."""
+    per = grid_cfg.num_levels // n_model
+    rows = per * 2**grid_cfg.log2_hashmap_size
+    if per * n_model != grid_cfg.num_levels or table.shape[0] != \
+            grid_cfg.num_levels * 2**grid_cfg.log2_hashmap_size:
+        raise ValueError(f"level_shard: {tuple(table.shape)} is not a uniform "
+                         f"stack of {grid_cfg.num_levels} levels that divide "
+                         f"into {n_model} shards")
+    return table[j * rows:(j + 1) * rows]
+
+
+def join_level_shards(shards) -> torch.Tensor:
+    """The [L*T, F] table from its n_model level shards, in model order."""
+    return torch.cat(list(shards))
+
+
 def state_to_arrays(state: Any, full: bool = True) -> dict:
     """{'/'-joined path: numpy array} of every tensor of `state`; full=False
     drops the optimizer state (the reference's light checkpoint)."""

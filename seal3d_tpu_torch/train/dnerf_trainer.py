@@ -27,6 +27,7 @@ import torch
 
 from seal3d_tpu_torch.data.rays import get_full_rays, get_rays
 from seal3d_tpu_torch.models import dnerf
+from seal3d_tpu_torch.parallel import mesh as pmesh
 from seal3d_tpu_torch.render.occupancy import (occupancy_t_init,
                                                occupancy_t_update)
 from seal3d_tpu_torch.render.renderer import render_rays, render_rays_dense
@@ -49,7 +50,7 @@ class DNeRFTrainer(Trainer):
                  dataset=None, seed: int = 0, device=None, name: str = "dnerf",
                  time_size: int = 64, deform_reg: float = 0.0,
                  sigma_reg: float = 0.0, slices_per_update: int = 8,
-                 use_dense: bool = False):
+                 use_dense: bool = False, mesh=None):
         self.time_size = time_size
         self.deform_reg = deform_reg
         self.sigma_reg = sigma_reg
@@ -57,7 +58,7 @@ class DNeRFTrainer(Trainer):
         self._grid_cursor = 0
         super().__init__(dnerf, field_cfg, opts, cfg, dataset=dataset,
                          seed=seed, device=device, name=name,
-                         use_dense=use_dense)
+                         use_dense=use_dense, mesh=mesh)
         self.eval_opts_t = dataclasses.replace(
             opts, budget_per_ray=cfg.eval_budget_per_ray,
             flat_frac=cfg.eval_flat_frac)
@@ -106,10 +107,16 @@ class DNeRFTrainer(Trainer):
         if gt.shape[-1] == 4:
             gt = gt[:, :3] * gt[:, 3:] + bg * (1.0 - gt[:, 3:])
         batch = {"rays_o": rays["rays_o"], "rays_d": rays["rays_d"],
-                 "gt": gt, "bg": bg, "time": self._times[rand.img_idx]}
-        for k in ("z_jitter", "pdf_u", "reg_points"):
+                 "gt": gt, "bg": bg}
+        for k in ("z_jitter", "pdf_u"):
             if getattr(rand, k) is not None:
                 batch[k] = getattr(rand, k)
+        # the rays' tensors are this rank's slice; time and the sigma_reg
+        # points are the step's, on every rank
+        batch = pmesh.shard_rays(batch, self.mesh)
+        batch["time"] = self._times[rand.img_idx]
+        if rand.reg_points is not None:
+            batch["reg_points"] = rand.reg_points
         return batch
 
     def time_slice(self, t: torch.Tensor) -> torch.Tensor:
@@ -130,8 +137,9 @@ class DNeRFTrainer(Trainer):
                 generator=self.generator)
         else:
             out = render_rays(params, timed, fcfg, bitfield_t,
-                              batch["rays_o"], batch["rays_d"], self.opts,
-                              bg_color=batch["bg"], jitter=jitter)
+                              batch["rays_o"], batch["rays_d"],
+                              self.step_opts, bg_color=batch["bg"],
+                              jitter=jitter)
         loss = ((out["image"] - batch["gt"]) ** 2).mean(-1).mean()
         if self.deform_reg > 0 and fcfg.variant == "deform":
             xs = (batch["rays_o"]
@@ -148,14 +156,18 @@ class DNeRFTrainer(Trainer):
         time's bitfield, its gradient, Adam (with the MLP scale) and EMA.
         Returns device tensors {"loss", "num_samples"} (no host sync)."""
         st = self.state
+        if self.mesh is not None:
+            self.mesh.reset_log()
         rand = rand if rand is not None else self.draw_step_random()
         batch = self.sample_batch(rand)
         bitfield_t = st.occ.bitfield[self.time_slice(batch["time"])]
+        jitter = pmesh.shard_rays(rand.jitter, self.mesh)
         loss, grads, out = self._value_and_grads(
-            st.params, lambda p: self.loss_fn(p, bitfield_t, batch,
-                                              rand.jitter))
+            st.params, lambda p: self.loss_fn(p, bitfield_t, batch, jitter))
+        loss, grads, n_samples = self.reduce_step(loss, grads,
+                                                  out["num_samples"])
         self.state = self._apply_grads(st, grads)
-        return {"loss": loss, "num_samples": out["num_samples"]}
+        return {"loss": loss, "num_samples": n_samples}
 
     # ------------------------------------------------------------ grid, loop
 

@@ -1,9 +1,11 @@
 """Image quality metrics (port of seal3d_tpu/train/metrics.py), numpy only.
 
-PSNR and its meter, SSIM with a uniform window, and `lpips_proxy`, the
-reference's weight-free perceptual distance. The reference's LPIPS meter
-needs the `lpips` package and local AlexNet weights; the port's
-`PerceptualMeter` always runs the proxy and says so in `kind`.
+PSNR and its meter, SSIM with a uniform window, `lpips_proxy`, the
+reference's weight-free perceptual distance, and `LPIPSMeter`, LPIPS
+(AlexNet) gated on a local weights file: `lpips` is imported only when a
+path is given, and nothing is downloaded. `PerceptualMeter(weights_path)`
+runs LPIPS where that meter is available, else the proxy, and says which in
+`kind`.
 """
 
 from __future__ import annotations
@@ -89,17 +91,59 @@ def lpips_proxy(pred, truth, scales: int = 4) -> float:
     return total
 
 
+class LPIPSMeter:
+    """Mean LPIPS (AlexNet) over the images it was given, available only
+    where `weights_path` names a local checkpoint that the `lpips` package
+    loads; else `available` is False and it measures None."""
+
+    def __init__(self, weights_path=None):
+        self.available = False
+        self.v, self.n = 0.0, 0
+        if weights_path:
+            try:
+                import lpips
+
+                self.fn = lpips.LPIPS(net="alex", model_path=weights_path)
+                self.available = True
+            except (ImportError, OSError, RuntimeError):
+                # no lpips, no such file, or weights it cannot load
+                self.available = False
+
+    def update(self, pred, truth):
+        if not self.available:
+            return
+        import torch
+
+        p = torch.from_numpy(np.asarray(pred)).permute(2, 0, 1)[None] * 2 - 1
+        t = torch.from_numpy(np.asarray(truth)).permute(2, 0, 1)[None] * 2 - 1
+        with torch.no_grad():
+            self.v += float(self.fn(p, t).item())
+        self.n += 1
+
+    def measure(self):
+        return self.v / max(self.n, 1) if self.available else None
+
+
 class PerceptualMeter:
-    """Mean `lpips_proxy` over the images it was given."""
+    """LPIPS where `LPIPSMeter(weights_path)` is available, else the mean
+    `lpips_proxy`; `kind` says which one ran."""
 
-    kind = "lpips_proxy"
-
-    def __init__(self):
+    def __init__(self, weights_path=None):
+        self._lpips = LPIPSMeter(weights_path)
+        self.kind = "lpips" if self._lpips.available else "lpips_proxy"
         self.v, self.n = 0.0, 0
 
     def update(self, pred, truth):
-        self.v += lpips_proxy(pred, truth)
-        self.n += 1
+        if self._lpips.available:
+            self._lpips.update(pred, truth)
+        else:
+            self.v += lpips_proxy(pred, truth)
+            self.n += 1
 
     def measure(self) -> float:
+        if self._lpips.available:
+            return self._lpips.measure()
         return self.v / max(self.n, 1)
+
+    def report(self) -> str:
+        return f"{self.kind} = {self.measure():.4f}"

@@ -28,7 +28,8 @@ class TensoRFTrainer(Trainer):
                  upsample_steps: Sequence[int] = (2000, 3000, 4000, 5500,
                                                   7000),
                  n_voxel_init: int = 128**3, n_voxel_final: int = 300**3,
-                 shrink_step: Optional[int] = 1000, use_dense: bool = False):
+                 shrink_step: Optional[int] = 1000, use_dense: bool = False,
+                 mesh=None):
         self.l1_weight = l1_weight
         self.l1_weight_rest = l1_weight_rest
         self.upsample_schedule = self._voxel_schedule(
@@ -38,7 +39,7 @@ class TensoRFTrainer(Trainer):
         self.segment_stats = []
         super().__init__(tensorf, field_cfg, opts, cfg, dataset=dataset,
                          seed=seed, device=device, name=name,
-                         use_dense=use_dense, reg_fn=self._reg,
+                         use_dense=use_dense, reg_fn=self._reg, mesh=mesh,
                          optimizer=tensorf_optimizer(cfg.max_steps, lr_factor,
                                                      lr_net))
 

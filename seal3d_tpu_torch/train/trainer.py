@@ -18,6 +18,15 @@ an EMA of their per-ray error. With a CLIP loss and `rand_pose` >= 0,
 `clip_step` renders a random orbit pose and pulls it toward a text prompt
 (every step at 0, else one guided step per `rand_pose` steps).
 
+Under a mesh (`Trainer(mesh=...)`, parallel/mesh.py) each rank draws the same
+global `StepRandom`, trains on its contiguous slice of the batch with its own
+flat pack (`pack_shards` = the data axis' size, the single-level march), and
+sums the gradients, the loss and the sample count over 'data' in one
+collective before Adam; the error map is refreshed from every rank's
+per-ray errors. With `grid_shard_levels` under a 'model' axis, each rank
+holds its level shard of the grids and their Adam moments, and checkpoints
+put the tables back together. Rank 0 alone writes checkpoints and the log.
+
 PyTorch runs eagerly, so nothing is jitted: the reference's per-bucket jit
 caches and blocked (scanned) steps have no counterpart, and the per-chunk
 buckets only size the packed buffers. The step's random numbers (image,
@@ -47,11 +56,12 @@ from seal3d_tpu_torch.ops.ladder import pack_tables
 from seal3d_tpu_torch.ops.raymarch import (group_plan, ladder_plan_kernel,
                                            march_candidates, march_rays_grid,
                                            occupancy_at, ray_stride_keep)
+from seal3d_tpu_torch.parallel import mesh as pmesh
 from seal3d_tpu_torch.render.occupancy import (OccupancyState, mark_untrained,
                                                occupancy_init,
                                                occupancy_update)
-from seal3d_tpu_torch.render.renderer import (RenderOptions, render_rays,
-                                             render_rays_dense)
+from seal3d_tpu_torch.render.renderer import (RenderOptions, flat_budget,
+                                             render_rays, render_rays_dense)
 from seal3d_tpu_torch.train import checkpoint as ckpt_io
 from seal3d_tpu_torch.train.metrics import PerceptualMeter, PSNRMeter
 from seal3d_tpu_torch.train.optim import Optimizer, apply_updates
@@ -100,6 +110,8 @@ class TrainConfig:
 # train steps before Trainer.train's timing window opens (first grid
 # updates, allocator warm-up), as the reference's bench warms up 48 steps
 TIMING_WARMUP = 48
+# the params leaves that level-sharded tensor parallelism splits over 'model'
+TP_LEAVES = ("encoder", "encoder_color")
 
 
 class TrainState(NamedTuple):
@@ -176,14 +188,29 @@ class Trainer:
     def __init__(self, field_mod, field_cfg, opts: RenderOptions,
                  cfg: TrainConfig, dataset=None, seed: int = 0, device=None,
                  name: str = "ngp", use_dense: bool = False, reg_fn=None,
-                 optimizer=None, clip_loss=None):
+                 optimizer=None, clip_loss=None, mesh=None):
         """reg_fn: params -> [] tensor added to each step's loss (TensoRF's
         L1 density sparsity), or None; optimizer: an Optimizer-like object
         (`init`, `update`), by default Adam over every leaf at cfg.lr;
         clip_loss: a prepared utils.clip_guidance.CLIPLoss for the guided
-        steps of cfg.rand_pose >= 0, or None (no guided step)."""
+        steps of cfg.rand_pose >= 0, or None (no guided step); mesh: the
+        parallel.mesh.Mesh this rank trains on (made the ambient mesh), or
+        None. Under a mesh whose 'data' axis has n > 1 ranks the flat pack
+        is split per rank (pack_shards = n) and the train march is
+        single-level, as the reference derives them from its mesh."""
         self.field = field_mod
         self.fcfg = field_cfg
+        self.mesh = mesh
+        n_data = mesh.size("data") if mesh is not None else 1
+        if n_data > 1 and opts.pack_shards == 1:
+            opts = dataclasses.replace(opts, pack_shards=n_data,
+                                       march_two_level=False)
+        if mesh is not None:
+            pmesh.set_mesh(mesh)
+        grid = getattr(field_cfg, "grid", None)
+        self._tp = (mesh is not None and mesh.size("model") > 1
+                    and grid is not None and grid.shard_levels
+                    and grid.backend in ("xla", "halo"))
         self.opts = opts
         self.cfg = cfg
         self.name = name
@@ -212,7 +239,8 @@ class Trainer:
         # "lpips_proxy"}; train_stats: the last train() call's timings
         self.history, self.eval_history, self.train_stats = [], [], {}
         self._logfile = None
-        if cfg.workspace:
+        self.rank0 = mesh is None or torch.distributed.get_rank() == 0
+        if cfg.workspace and self.rank0:
             os.makedirs(cfg.workspace, exist_ok=True)
             self._logfile = os.path.join(cfg.workspace, f"log_{name}.txt")
         if dataset is not None:
@@ -254,6 +282,10 @@ class Trainer:
     def init_state(self) -> TrainState:
         params = self.field.init(self.fcfg, generator=self.init_generator)
         params = ckpt_io.map_tree(params, lambda _, t: t.to(self.device))
+        if self._tp:
+            params = self._shard_levels(params)
+        if self.mesh is not None:
+            params = pmesh.replicate(params, self.mesh, self._sharded)
         ema = ckpt_io.map_tree(params, lambda _, t: t.clone())
         occ = occupancy_init(self.opts.cascades, device=self.device)
         if self.dataset is not None and not self.use_dense:
@@ -270,6 +302,63 @@ class Trainer:
                                                  device=self.device),
                                 error_map=emap)
         return self.state
+
+    # ------------------------------------------------------- mesh, sharding
+
+    def _sharded(self, path: str) -> bool:
+        """Whether the state leaf at `path` is a model rank's level shard."""
+        return self._tp and path.rsplit("/", 1)[-1] in TP_LEAVES
+
+    def _shard_levels(self, tree):
+        """`tree` with its TP_LEAVES cut to this model rank's levels."""
+        j, n = self.mesh.index("model"), self.mesh.size("model")
+        return ckpt_io.map_tree(tree, lambda k, t: ckpt_io.level_shard(
+            t, self.fcfg.grid, n, j) if self._sharded(k) else t)
+
+    def full_state(self) -> TrainState:
+        """The state with whole tables: under tensor parallelism the model
+        ranks' level shards put back together (a collective over 'model'
+        that every rank enters, outside the step); else the state itself."""
+        if not self._tp:
+            return self.state
+        return ckpt_io.map_tree(self.state, lambda k, t: pmesh.gather_rows(
+            t, self.mesh, "model", "checkpoint") if self._sharded(k) else t)
+
+    @property
+    def step_opts(self) -> RenderOptions:
+        """The render options of this rank's part of a train step: under a
+        mesh each rank packs its slice of the batch alone (pack_shards 1),
+        into its share of the sharded pack's budget."""
+        if self.mesh is None:
+            return self.opts
+        opts = dataclasses.replace(self.opts, pack_shards=1)
+        n, shards = self.cfg.num_rays, self.opts.pack_shards
+        if (opts.flat_frac is not None and opts.flat_frac < 1.0
+                and flat_budget(n, self.opts)
+                != shards * flat_budget(n // shards, opts)):
+            raise ValueError(f"flat_frac {opts.flat_frac}: a rank's budget is "
+                             f"not its share of the {shards}-shard pack's")
+        return opts
+
+    def reduce_step(self, loss, grads, num_samples):
+        """(loss, grads, num_samples) of the global batch from this rank's:
+        the gradients and the loss summed over 'data' and divided by its
+        size (each rank's loss is the mean over its equal slice), the
+        sample count summed, in one all_reduce. Unchanged without a mesh."""
+        if self.mesh is None:
+            return loss, grads, num_samples
+        flat = ckpt_io.flatten_tree(grads)
+        buf = torch.cat([g.reshape(-1) for _, g in flat]
+                        + [loss.reshape(1).to(torch.float32),
+                           num_samples.reshape(1).to(torch.float32)])
+        pmesh.collective("all_reduce", buf, self.mesh, "data", "grads")
+        n = self.mesh.size("data")
+        parts = dict(zip([k for k, _ in flat],
+                         buf[:-2].split([g.numel() for _, g in flat])))
+        grads = ckpt_io.map_tree(
+            grads, lambda k, g: parts[k].reshape(g.shape) / n)
+        return (buf[-2] / n, grads,
+                buf[-1].round().to(num_samples.dtype))
 
     # ------------------------------------------------------------ train step
 
@@ -319,7 +408,7 @@ class Trainer:
                 batch[k] = getattr(rand, k)
         if self._depths is not None:
             batch["gt_depth"] = self._depths[rand.img_idx].reshape(-1)[rand.inds]
-        return batch
+        return pmesh.shard_rays(batch, self.mesh)
 
     def loss_fn(self, params, occ: OccupancyState, batch: dict,
                 jitter: Optional[torch.Tensor]):
@@ -338,7 +427,7 @@ class Trainer:
                 pdf_u=batch.get("pdf_u"), generator=self.generator)
         else:
             out = render_rays(params, self.field, self.fcfg, occ.bitfield,
-                              batch["rays_o"], batch["rays_d"], self.opts,
+                              batch["rays_o"], batch["rays_d"], self.step_opts,
                               bg_color=batch["bg"],
                               aabb=self._march_aabb(occ.occ_aabb),
                               jitter=jitter)
@@ -392,24 +481,32 @@ class Trainer:
         Returns device tensors {"loss", "num_samples"} (no host sync). Its
         stages are `step.*` ranges in a torch.profiler trace."""
         st = self.state
+        if self.mesh is not None:
+            self.mesh.reset_log()
         with record_function("step.batch"):
             rand = rand if rand is not None else self.draw_step_random()
             batch = self.sample_batch(rand)
-        loss, grads, out = self.loss_and_grads(st.params, st.occ, batch,
-                                               rand.jitter)
+        loss, grads, out = self.loss_and_grads(
+            st.params, st.occ, batch, pmesh.shard_rays(rand.jitter, self.mesh))
+        loss, grads, n_samples = self.reduce_step(loss, grads,
+                                                  out["num_samples"])
         st = self._apply_grads(st, grads)
         with torch.no_grad():
-            ns = out["num_samples"].to(torch.float32)
+            ns = n_samples.to(torch.float32)
             mc = st.occ.mean_count
             st = st._replace(occ=st.occ._replace(
                 mean_count=torch.where(mc < 0, ns, mc * 0.9 + ns * 0.1)))
             if st.error_map is not None:
+                per_ray = out["per_ray"]
+                if self.mesh is not None:
+                    per_ray = pmesh.gather_rows(per_ray, self.mesh, "data",
+                                                "per_ray")
                 cells = error_map_cells(rand.inds, self.dataset.h,
                                         self.dataset.w)
                 st = st._replace(error_map=refresh_error_map(
-                    st.error_map, rand.img_idx, cells, out["per_ray"]))
+                    st.error_map, rand.img_idx, cells, per_ray))
         self.state = st
-        return {"loss": loss, "num_samples": out["num_samples"]}
+        return {"loss": loss, "num_samples": n_samples}
 
     def clip_step(self) -> float:
         """One CLIP-guided step: render a random orbit pose (radius
@@ -569,6 +666,8 @@ class Trainer:
                       f"(mean_count={mc:.0f}/{cap})")
 
     def _log(self, msg: str):
+        if not self.rank0:
+            return
         print(msg)
         if self._logfile:
             with open(self._logfile, "a") as f:
@@ -587,23 +686,30 @@ class Trainer:
                         full: bool = True) -> str:
         """Write the state (full: with the optimizer state) to `path`, by
         default `<workspace>/checkpoints/<name>_step<step:07d>.npz`, and
-        keep the newest cfg.max_keep_ckpt step checkpoints."""
+        keep the newest cfg.max_keep_ckpt step checkpoints. Under a mesh
+        every rank calls it and rank 0 alone writes."""
         ws = self.cfg.workspace
         if path is None:
             if not ws:
                 raise ValueError("save_checkpoint needs a path or a workspace")
             path = os.path.join(ws, "checkpoints",
                                 f"{self.name}_step{int(self.state.step):07d}.npz")
-        ckpt_io.save_state(path, self.state, full=full)
+        state = self.full_state()
+        if not self.rank0:
+            return path
+        ckpt_io.save_state(path, state, full=full)
         if ws:
             ckpt_io.prune_checkpoints(os.path.join(ws, "checkpoints"),
                                       self.name, keep=self.cfg.max_keep_ckpt)
         return path
 
     def load_checkpoint(self, path: str) -> TrainState:
+        """Load a `.npz` of whole tables (under tensor parallelism each rank
+        keeps its level shards)."""
         if self.state is None:
             self.init_state()
-        self.state = ckpt_io.load_state(path, self.state)
+        state = ckpt_io.load_state(path, self.full_state())
+        self.state = self._shard_levels(state) if self._tp else state
         return self.state
 
     # ------------------------------------------------------------- rendering
@@ -836,7 +942,9 @@ class Trainer:
                                   pmeter.kind: pmeter.measure()})
         if self.cfg.workspace and result > getattr(self, "_best_psnr", -1.0):
             self._best_psnr = result
-            ckpt_io.save_state(os.path.join(self.cfg.workspace, "checkpoints",
-                                            f"{self.name}_best.npz"),
-                               self.state, full=False)
+            state = self.full_state()
+            if self.rank0:
+                ckpt_io.save_state(os.path.join(
+                    self.cfg.workspace, "checkpoints",
+                    f"{self.name}_best.npz"), state, full=False)
         return result

@@ -135,8 +135,10 @@ def test_unported_backends_raise():
     """Every backend of the reference is ported: the 'pallas' backend's
     unfused branch (align_corners: kernel K5), the last to raise, now
     encodes and agrees with the JAX `xla` backend of the same geometry
-    (1e-5; tests/test_torch_lookup.py holds the gradients too). What still
-    raises is level-sharded tensor parallelism and an unknown backend."""
+    (1e-5; tests/test_torch_lookup.py holds the gradients too). Level
+    sharding without a mesh encodes the uniform [L*T, F] stack whole, as
+    the JAX `xla` backend does with shard_levels and no ambient mesh
+    (`constrain` a no-op there); an unknown backend raises."""
     kw = dict(log2_hashmap_size=12, num_levels=2, align_corners=True)
     jc, tc = _cfgs(backend="pallas", **kw)
     jx, _ = _cfgs(backend="xla", **kw)
@@ -146,9 +148,12 @@ def test_unported_backends_raise():
                                       thg.HashGridConfig(backend="xla", **kw))
     ref = jhg.hashgrid_encode(jnp.asarray(native.numpy()), jnp.asarray(x), jx)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="multi-GPU item"):
-        thg.hashgrid_encode(torch.from_numpy(tab), torch.from_numpy(x),
-                            thg.HashGridConfig(shard_levels=True, **kw))
+    jsh, tsh = _cfgs(shard_levels=True, **kw)
+    uniform, _ = _inputs(f=2, total=tsh.total_params, seed=7)
+    out = thg.hashgrid_encode(torch.from_numpy(uniform), torch.from_numpy(x),
+                              tsh)
+    ref = jhg.hashgrid_encode(jnp.asarray(uniform), jnp.asarray(x), jsh)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
     with pytest.raises(ValueError, match="unknown grid backend"):
         thg.hashgrid_encode(torch.from_numpy(tab), torch.from_numpy(x),
                             thg.HashGridConfig(backend="nope", **kw))
