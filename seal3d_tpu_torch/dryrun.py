@@ -3,7 +3,7 @@
 of three layouts, over `n` ranks started by parallel/launch.py.
 
     python -m seal3d_tpu_torch.dryrun [--ranks 4] [--device cpu]
-        [--backend gloo|nccl] [--partial_grid]
+        [--partial_grid]
 
 1. dp over n ranks (`make_mesh`), flat_frac 0.5: the Trainer derives
    pack_shards = n, and the step's collective log holds no batch-scale
@@ -15,9 +15,8 @@ of three layouts, over `n` ranks started by parallel/launch.py.
 
 Each phase runs a full grid update (a partial one with --partial_grid: a
 sixth of the cells, what a CPU run can afford) and one step, and prints its
-loss, which must be finite. Ranks run on the card unless --device cpu;
-under gloo (the default) they share one card, under NCCL each needs its
-own.
+loss, which must be finite. Ranks run on the card unless --device cpu,
+over gloo, so that they can share one card.
 """
 
 from __future__ import annotations
@@ -99,8 +98,8 @@ def dryrun_rank(device, n: int, full_grid: bool = True) -> list:
     return out
 
 
-def dryrun_multichip(n: int, device: str = "cuda", backend: str = "gloo",
-                     timeout: float = 300.0, full_grid: bool = True) -> list:
+def dryrun_multichip(n: int, device: str = "cuda", timeout: float = 300.0,
+                     full_grid: bool = True) -> list:
     """The three phases over `n` ranks; prints each phase's loss (rank 0's)
     and returns every rank's [(tag, loss, log)]."""
     from seal3d_tpu_torch.parallel.launch import launch
@@ -109,7 +108,7 @@ def dryrun_multichip(n: int, device: str = "cuda", backend: str = "gloo",
         from seal3d_tpu_torch.runtime.build import build_library
 
         build_library()     # once here, so the ranks do not race to build
-    results = launch(dryrun_rank, n, args=(n, full_grid), backend=backend,
+    results = launch(dryrun_rank, n, args=(n, full_grid), backend="gloo",
                      device=device, timeout=timeout)
     for tag, loss, _ in results[0]:
         print(f"dryrun_multichip({n}): ok, loss={loss:.4f} [{tag}]")
@@ -120,14 +119,12 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ranks", type=int, default=4)
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    p.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
-    p.add_argument("--timeout", type=float, default=300.0)
     p.add_argument("--partial_grid", action="store_true")
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("dryrun: no CUDA device (pass --device cpu)")
-    dryrun_multichip(args.ranks, args.device, args.backend, args.timeout,
-                     not args.partial_grid)
+    dryrun_multichip(args.ranks, args.device,
+                     full_grid=not args.partial_grid)
 
 
 if __name__ == "__main__":

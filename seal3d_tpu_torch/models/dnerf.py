@@ -36,6 +36,11 @@ from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig, hashgrid_encode,
 from seal3d_tpu_torch.ops.sh import sh_encode, sh_encode_dim
 from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
 
+# the params' MLPs, whose weight gradients their casts sum over a data mesh
+# (models/mlp.py)
+MLP_NETS = ("deform_net", "basis_net", "ambient_net", "sigma_net",
+            "color_net")
+
 
 @dataclass(frozen=True)
 class DNeRFConfig:

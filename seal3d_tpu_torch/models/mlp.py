@@ -7,9 +7,11 @@ the rounded values in fp32: a product of two bf16 values is exact in fp32, so
 only the summation order differs. (`torch.matmul` on bf16 tensors would
 round its output to bf16 as well, which the reference does not.) The casts'
 backwards round the cotangents to bf16 too, as the reference's do. Under a
-data mesh the reference rounds a weight's cotangent after the partitioned
-step's sum over 'data'; here too (`_Bf16Weight`), so n ranks give the one
-process's weight gradients up to summation order.
+data mesh the reference rounds each use's weight cotangent after the
+partitioned step's sum over 'data'; here too (`_Bf16Weight`), so n ranks
+give the one process's weight gradients up to summation order, also for a
+weight used twice in a step (D-NeRF's regularisers), which a single
+rounding after the trainer's sum would not.
 """
 
 from __future__ import annotations
@@ -40,8 +42,9 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 class _Bf16Weight(torch.autograd.Function):
     """A weight rounded to bf16, whose cotangent is summed over the mesh's
     'data' axis before it is rounded: the backward returns bf16(sum) / n,
-    so that the trainer's own sum over 'data' divided by n (reduce_step)
-    leaves bf16 of the global batch's gradient."""
+    this use's gradient of the global batch's loss (each rank's loss is the
+    mean over its equal slice), which the trainer's reduce_step leaves
+    as it is."""
 
     @staticmethod
     def forward(ctx, w, mesh):

@@ -25,6 +25,10 @@ from seal3d_tpu_torch.ops.sh import sh_encode, sh_encode_dim
 from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
 from seal3d_tpu_torch.train.checkpoint import map_tree
 
+# the params' MLPs, whose weight gradients their casts sum over a data mesh
+# (models/mlp.py)
+MLP_NETS = ("sigma_net", "color_net", "bg_net")
+
 
 @dataclass(frozen=True)
 class NGPConfig:

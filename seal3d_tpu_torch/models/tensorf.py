@@ -37,6 +37,9 @@ from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
 
 # plane i spans world axes MAT_IDS[i]; line i spans axis VEC_IDS[i]
 MAT_IDS = ((0, 1), (0, 2), (1, 2))
+# the params' MLPs, whose weight gradients their casts sum over a data mesh
+# (models/mlp.py; basis_mat is an fp32 product)
+MLP_NETS = ("color_net", "bg_net")
 VEC_IDS = (2, 1, 0)
 
 

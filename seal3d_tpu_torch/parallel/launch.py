@@ -43,10 +43,10 @@ def rank_device(rank: int, backend: str, device: str) -> torch.device:
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
-def _rank_main(rank, fn, args, world, backend, device, tmp, timeout, threads):
+def _rank_main(rank, fn, args, world, backend, device, tmp, timeout):
     import torch.distributed as dist
 
-    torch.set_num_threads(threads)
+    torch.set_num_threads(1)    # ranks share the host's cores
     dev = rank_device(rank, backend, device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -64,10 +64,9 @@ def _rank_main(rank, fn, args, world, backend, device, tmp, timeout, threads):
 
 
 def launch(fn, world: int, args=(), backend: str = "gloo",
-           device: str = "cpu", timeout: float = 120.0,
-           threads: int = 1) -> list:
+           device: str = "cpu", timeout: float = 120.0) -> list:
     """fn(device, *args) on `world` spawned ranks -> their return values in
-    rank order. `threads`: PyTorch intra-op threads a rank."""
+    rank order."""
     import torch.multiprocessing as mp
 
     if backend not in ("gloo", "nccl"):
@@ -83,7 +82,7 @@ def launch(fn, world: int, args=(), backend: str = "gloo",
     with tempfile.TemporaryDirectory() as tmp:
         ctx = mp.start_processes(
             _rank_main, args=(fn, args, world, backend, device, tmp,
-                              timeout, threads),
+                              timeout),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout
         while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):

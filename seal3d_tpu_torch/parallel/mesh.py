@@ -25,7 +25,8 @@ an all_reduce of a zero-filled buffer, at n times its bytes.
 `constrain` and `data_sharding` have no counterpart: a rank's tensors are
 its shard already. The ambient mesh (`set_mesh`, read by `current_mesh`)
 takes the place of `jax.sharding.set_mesh`: the level-sharded encode reads
-it, as the reference's encoder reads the abstract mesh.
+it, as the reference's encoder reads the abstract mesh, and so do the MLP
+weight casts (models/mlp.py).
 """
 
 from __future__ import annotations
@@ -127,8 +128,8 @@ _AMBIENT: Optional[Mesh] = None
 
 
 def set_mesh(mesh: Optional[Mesh]):
-    """Make `mesh` the ambient mesh of this process (a rank trains on one
-    mesh at a time; Trainer(mesh=) sets it)."""
+    """Make `mesh` (or None) the ambient mesh of this process; a Trainer
+    sets its own where its steps, grid updates and renders start."""
     global _AMBIENT
     _AMBIENT = mesh
 

@@ -66,6 +66,23 @@ def build_trainer(spec: dict, device, mesh=None):
     return tr
 
 
+def state_fingerprint(tr) -> str:
+    """sha256 of the trainer's whole state (every leaf of full_state() in
+    path order: params, Adam moments, EMA, occupancy, step, error map) and
+    of its budget's operating point: the replicas of a mesh hold the same
+    numbers, so they must agree on it exactly."""
+    import hashlib
+
+    from seal3d_tpu_torch.train.checkpoint import flatten_tree
+
+    h = hashlib.sha256()
+    for k, v in flatten_tree(tr.full_state()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    h.update(repr((tr.opts.budget_per_ray, tr.opts.flat_frac)).encode())
+    return h.hexdigest()
+
+
 def _step_random(r: dict, device):
     from seal3d_tpu_torch.train.trainer import StepRandom
 
@@ -92,7 +109,8 @@ def train_rank(device, spec: dict) -> dict:
     state has one), "saved" (the checkpoint path), "log" (the last step's
     collectives), "step_ms" (the loop's timing window), "psnr", "k1_err"
     and "k1_case" (that launch's rows, valid mask and levels), "launches"
-    ({counter: launches in the steps}), "steps"}."""
+    ({counter: launches in the steps}), "steps", "fingerprint"
+    (`state_fingerprint` at the end)}."""
     from seal3d_tpu_torch.ops import halo_encode as k1
     from seal3d_tpu_torch.train.checkpoint import flatten_tree
 
@@ -169,6 +187,7 @@ def train_rank(device, spec: dict) -> dict:
         out["loop_flat_frac"] = tr.opts.flat_frac
     if spec.get("eval") is not None:
         out["psnr"] = tr.evaluate(spec["eval"])
+    out["fingerprint"] = state_fingerprint(tr)
     return out
 
 
@@ -208,6 +227,25 @@ def encode_rank(device, spec: dict) -> dict:
     return {"coords": (i, j), "out": out.detach().cpu().numpy(),
             "grad": grad.cpu().numpy(), "log": list(mesh.log),
             "seconds": time.perf_counter() - t0}
+
+
+def mesh_then_plain_rank(device, spec: dict) -> dict:
+    """A Trainer on spec["mesh"] takes a step, then `train_rank` trains one
+    without a mesh on the rest of the spec in this process, then the first
+    takes another step. -> {"plain" (train_rank's report), "ambient_none"
+    (no ambient mesh after the second's run), "logged_on_mesh" (what the
+    first's mesh logged meanwhile), "mesh_log" (the first's last step's
+    collectives)}."""
+    mesh = _mesh(spec["mesh"])
+    first = build_trainer(spec, device, mesh)
+    first.train_step()
+    mesh.reset_log()
+    plain = train_rank(device, {k: v for k, v in spec.items()
+                                if k != "mesh"})
+    ambient_none, logged = pmesh.current_mesh() is None, list(mesh.log)
+    first.train_step()
+    return {"plain": plain, "ambient_none": ambient_none,
+            "logged_on_mesh": logged, "mesh_log": list(mesh.log)}
 
 
 def unmatched_collective_rank(device, seconds: float) -> None:

@@ -156,6 +156,7 @@ class DNeRFTrainer(Trainer):
         time's bitfield, its gradient, Adam (with the MLP scale) and EMA.
         Returns device tensors {"loss", "num_samples"} (no host sync)."""
         st = self.state
+        pmesh.set_mesh(self.mesh)
         if self.mesh is not None:
             self.mesh.reset_log()
         rand = rand if rand is not None else self.draw_step_random()
@@ -179,6 +180,7 @@ class DNeRFTrainer(Trainer):
         (uni_codes, uniforms, jitter, time_jitter) as in
         `occupancy_t_update`; what is not given comes from the trainer's
         generator."""
+        pmesh.set_mesh(self.mesh)
         params, fcfg = self.state.params, self.fcfg
         scale = self.opts.density_scale
         if start_slice is None:

@@ -194,8 +194,10 @@ class Trainer:
         (`init`, `update`), by default Adam over every leaf at cfg.lr;
         clip_loss: a prepared utils.clip_guidance.CLIPLoss for the guided
         steps of cfg.rand_pose >= 0, or None (no guided step); mesh: the
-        parallel.mesh.Mesh this rank trains on (made the ambient mesh), or
-        None. Under a mesh whose 'data' axis has n > 1 ranks the flat pack
+        parallel.mesh.Mesh this rank trains on, or None; the trainer makes
+        it the ambient mesh (None included) here and where its steps, grid
+        updates and renders start, so that a trainer without a mesh never
+        runs on another's. Under a mesh whose 'data' axis has n > 1 ranks the flat pack
         is split per rank (pack_shards = n) and the train march is
         single-level, as the reference derives them from its mesh."""
         self.field = field_mod
@@ -205,8 +207,7 @@ class Trainer:
         if n_data > 1 and opts.pack_shards == 1:
             opts = dataclasses.replace(opts, pack_shards=n_data,
                                        march_two_level=False)
-        if mesh is not None:
-            pmesh.set_mesh(mesh)
+        pmesh.set_mesh(mesh)
         grid = getattr(field_cfg, "grid", None)
         self._tp = (mesh is not None and mesh.size("model") > 1
                     and grid is not None and grid.shard_levels
@@ -344,10 +345,18 @@ class Trainer:
         """(loss, grads, num_samples) of the global batch from this rank's:
         the gradients and the loss summed over 'data' and divided by its
         size (each rank's loss is the mean over its equal slice), the
-        sample count summed, in one all_reduce. Unchanged without a mesh."""
+        sample count summed, in one all_reduce. The MLP weights' gradients
+        (the field's MLP_NETS) are left out: their casts' backwards summed
+        each use's cotangent over 'data' before its bf16 rounding, as the
+        reference does (models/mlp.py), so they arrive global. Under tensor
+        parallelism the model ranks then take model rank 0's gradients of
+        the replicated leaves (`_agree_over_model`). Unchanged without a
+        mesh."""
         if self.mesh is None:
             return loss, grads, num_samples
-        flat = ckpt_io.flatten_tree(grads)
+        nets = getattr(self.field, "MLP_NETS", ())
+        flat = [(k, g) for k, g in ckpt_io.flatten_tree(grads)
+                if k.split("/", 1)[0] not in nets]
         buf = torch.cat([g.reshape(-1) for _, g in flat]
                         + [loss.reshape(1).to(torch.float32),
                            num_samples.reshape(1).to(torch.float32)])
@@ -356,9 +365,27 @@ class Trainer:
         parts = dict(zip([k for k, _ in flat],
                          buf[:-2].split([g.numel() for _, g in flat])))
         grads = ckpt_io.map_tree(
-            grads, lambda k, g: parts[k].reshape(g.shape) / n)
+            grads, lambda k, g: parts[k].reshape(g.shape) / n
+            if k in parts else g)
+        if self._tp:
+            grads = self._agree_over_model(grads)
         return (buf[-2] / n, grads,
                 buf[-1].round().to(num_samples.dtype))
+
+    def _agree_over_model(self, grads):
+        """grads with every leaf that is not a level shard replaced by model
+        rank 0's, in one broadcast over 'model'. The model ranks compute
+        those gradients each on the same rows, but the atomic sums of the
+        composite's and K1's backwards differ between processes on the
+        card, and replicas that took different steps would drift apart."""
+        rep = [(k, g) for k, g in ckpt_io.flatten_tree(grads)
+               if not self._sharded(k)]
+        buf = torch.cat([g.reshape(-1) for _, g in rep])
+        pmesh.collective("broadcast", buf, self.mesh, "model", "grads")
+        parts = dict(zip([k for k, _ in rep],
+                         buf.split([g.numel() for _, g in rep])))
+        return ckpt_io.map_tree(grads, lambda k, g: parts[k].reshape(g.shape)
+                                if k in parts else g)
 
     # ------------------------------------------------------------ train step
 
@@ -481,6 +508,7 @@ class Trainer:
         Returns device tensors {"loss", "num_samples"} (no host sync). Its
         stages are `step.*` ranges in a torch.profiler trace."""
         st = self.state
+        pmesh.set_mesh(self.mesh)
         if self.mesh is not None:
             self.mesh.reset_log()
         with record_function("step.batch"):
@@ -547,6 +575,7 @@ class Trainer:
         """One occupancy refresh (full or partial) through the field's
         density at the current params, as in the reference's train loop;
         its random numbers come from the trainer's generator."""
+        pmesh.set_mesh(self.mesh)
         params, fcfg, scale = self.state.params, self.fcfg, self.opts.density_scale
 
         def density_fn(x):
@@ -837,6 +866,7 @@ class Trainer:
         dict appended to `self.render_stats`. With use_dense every chunk goes
         through the dense oracle, unjittered (no demand probe, no skipped
         chunk)."""
+        pmesh.set_mesh(self.mesh)
         t_start = time.perf_counter()
         chunk = self.cfg.eval_chunk
         st = self.state

@@ -11,9 +11,15 @@ seal3d_tpu_torch/parallel/launch.py, held against the JAX package.
   the same rays and jitter, against the JAX Trainer with the settings a
   2-device data mesh derives (pack_shards=2, march_two_level=False), whose
   loss is a mean over the global batch: the loss of every step 1e-4
-  relative; the params after the steps against the single-process port
-  (pack_shards=2): 1e-5 of each leaf's largest entry; the step log has no
-  batch-scale collective;
+  relative; the params after the steps against the JAX Trainer's (each
+  entry within the 2 lr a step of a flipped sign, at most 0.1% of each
+  leaf's entries off by more than 0.1 lr) and against the single-process
+  port (pack_shards=2): 1e-5 of each leaf's largest entry; the step log
+  sums each gradient once (the MLP weights' at their casts, the rest in
+  one collective) and holds no batch-scale collective;
+- a Trainer without a mesh after one on a dp2 x tp2 mesh, in one rank:
+  the ambient mesh is its own (None), so its step issues no collective on
+  the other's mesh and rounds its MLP weight gradients itself;
 - dp2 x tp2 with the error map and a checkpoint (rank 0 writes whole
   tables that load without a mesh); D-NeRF over two ranks against one
   process;
@@ -65,6 +71,12 @@ OPTS = dict(bound=1.0, dt_gamma=0.0, max_steps=512, budget_per_ray=48,
             num_candidates=256, coarse_steps=64, occ_stride=4, min_near=0.05)
 NUM_RAYS = 256
 GRID = dict(bound=1.0, log2_hashmap_size=12, num_levels=4)
+# dp2's params against the JAX Trainer's after 3 steps: Adam's normalised
+# step moves an entry whose gradient is noise by up to lr either way, so an
+# entry may be off by 2 lr a step; the share of entries off by more than
+# 0.1 lr is held (measured <= 9.2e-5, the encoders; the MLPs none)
+PARAM_ENTRY_TOL = 0.1    # of lr
+PARAM_SHARE = 1e-3
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -234,18 +246,53 @@ def test_dp2_gloo_matches_jax_and_single_process(scene):
                                        err_msg=k)
         assert not find_batch_collectives(
             r["log"], NUM_RAYS * OPTS["num_candidates"] // 2)
-        # one sum of every gradient, the loss and the sample count, and
-        # one per MLP weight before its bf16 rounding (models/mlp.py)
-        n_params = sum(v.size for v in single["params"].values())
+        # one sum per MLP weight use before its bf16 rounding
+        # (models/mlp.py), then one of every other gradient, the loss and
+        # the sample count: each gradient is summed once
         weights = sorted(v.size for k, v in single["params"].items()
                          if k.endswith("/w"))
+        others = sum(v.size for k, v in single["params"].items()
+                     if not k.endswith("/w"))
         assert [(c.what, c.elems) for c in r["log"]][-1] == (
-            "grads", n_params + 2)
+            "grads", others + 2)
         assert sorted(c.elems for c in r["log"][:-1]) == weights
         assert {c.what for c in r["log"][:-1]} == {"mlp_grads"}
+        # the params against the JAX Trainer's after the same steps
+        lr = spec["tcfg"].lr
+        for k, j in zip(single["params"], jax.tree.leaves(jtr.state.params)):
+            diff = np.abs(r["params"][k] - np.asarray(j))
+            assert diff.max() <= 2 * lr * len(keys), (k, diff.max())
+            assert (diff > PARAM_ENTRY_TOL * lr).mean() <= PARAM_SHARE, (
+                k, (diff > PARAM_ENTRY_TOL * lr).mean())
     # the replicas stay bit-identical
+    assert ranks[0]["fingerprint"] == ranks[1]["fingerprint"]
     for k, v in ranks[0]["params"].items():
         np.testing.assert_array_equal(ranks[1]["params"][k], v)
+
+
+def test_trainer_without_mesh_after_one_with_a_mesh(scene):
+    """A rank builds a Trainer on a dp2 x tp2 mesh (xla, grid_shard_levels)
+    and steps it, then a Trainer without a mesh, then the first again: the
+    second logs nothing on the first's mesh, gives the one-process
+    gradients (MLP weights bf16-exact, every leaf 1e-5 relative of the
+    parent's run), and the first still exchanges over both axes."""
+    jtr = _jax_trainer(scene)
+    spec = dict(_spec(scene, jtr), steps=1,
+                fcfg=NGPConfig(**GRID, grid_shard_levels=True),
+                opts=TOpts(**OPTS, flat_frac=0.5, pack_shards=2))
+    ranks = launch(programs.mesh_then_plain_rank, 4,
+                   args=(dict(spec, mesh=(2, 2)),), timeout=TIMEOUT)
+    single = programs.train_rank(torch.device("cpu"), spec)
+    for r in ranks:
+        assert r["ambient_none"]
+        assert r["logged_on_mesh"] == []
+        assert {c.axis for c in r["mesh_log"]} == {"data", "model"}
+        for k, v in single["grads"].items():
+            g = r["plain"]["grads"][k]
+            assert np.linalg.norm(g - v) <= 1e-5 * np.linalg.norm(v), k
+            if k.endswith("/w"):
+                bf = torch.from_numpy(g).to(torch.bfloat16).float().numpy()
+                np.testing.assert_array_equal(g, bf, err_msg=k)
 
 
 def test_tp_error_map_and_checkpoint(scene, tmp_path):
@@ -270,6 +317,7 @@ def test_tp_error_map_and_checkpoint(scene, tmp_path):
                                    atol=1e-6)
         assert (r["error_map"] != 0.1).any()
         assert {c.axis for c in r["log"]} == {"data", "model"}
+        assert r["fingerprint"] == ranks[0]["fingerprint"]
     fresh = programs.build_trainer(spec, torch.device("cpu"))
     fresh.load_checkpoint(path)
     for k, v in flatten_tree(fresh.state.params):

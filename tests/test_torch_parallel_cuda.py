@@ -11,7 +11,8 @@ Without a CUDA device the tests skip (K1 has no CPU or interpret mode).
   same steps without a mesh in this process: loss 1e-5 relative; the
   first step's reduced gradients within 1e-3 relative (L2 over all
   leaves; a run without the mesh in the rank's process reads ~2e-5); the
-  params' mean |diff| after the steps within 5% of their mean |change|;
+  params' mean |diff| after the steps within 0.3% of their mean |change|
+  (chip_smoke's PAR_PARAM_SHARE; measured 1.0e-6 here);
 - dp2 x tp2 over gloo, four ranks on the card: the level-sharded encode
   (K1 over each rank's levels) against K1 unsharded on the same rows,
   features 1e-5 and each shard's table gradient 1e-5 of the largest
@@ -81,7 +82,11 @@ def test_nccl_world1_matches_no_mesh(cuda_device):
     # step's gradients); a wrong reduction is O(1) off
     floor = rel_l2(ref2["grads"], ref["grads"])
     assert rel_l2(r["grads"], ref["grads"]) <= 1e-3, floor
-    assert mean_diff(r["params"], ref["params"]) <= 0.05 * ref["moved"]
+    share = mean_diff(r["params"], ref["params"]) / ref["moved"]
+    print(f"[world 1] first step's gradients rel L2 "
+          f"{rel_l2(r['grads'], ref['grads']):.3e} (floor {floor:.3e}); "
+          f"params mean |diff| / mean |change| {share:.3e}")
+    assert share <= 0.003
     assert [c.what for c in r["log"]] == ["grads"]
 
 
