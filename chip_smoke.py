@@ -305,13 +305,27 @@ Phases, each of which raises (exit code != 0) when it fails:
    point starting in the flat branch: (a) NCCL at world size 1, 8 steps
    through the collective code against the same steps without a mesh;
    (b) dp2 over gloo (two ranks on the card) against one process with
-   pack_shards=2 on the same StepRandom, 16 steps, then 200 with grid
+   pack_shards=2 on the same StepRandom, 16 steps, then 100 with grid
    updates and val PSNR, and no batch-scale collective in a step's log;
    (c) dp2 x tp2 on `halo` over gloo (four ranks, K1 over 8 levels a rank):
    the level-sharded encode against K1 unsharded, 16 steps against (b)'s,
    no table-sized collective over 'model'. Every rank holds its last
    step's first K1 launch against the plain version. Gloo ranks sharing a
    card measure the path's cost and its bytes, not scaling.
+26. the march options of RenderOptions (it runs after phase 19, on phase
+   7's trained state; `march_options_phase`, `[march options ...]` lines):
+   (a) one real 4096-ray train batch through the train march of each
+   option (the sort pack, which flat_select 'gather' also runs,
+   span_adaptive, the group-granular march, the legacy compaction, the
+   two-level march with jitter) on the card and on the CPU: integers
+   exact, floats on valid slots within 1e-6; (b) under each option the
+   first step's loss (1e-4 relative) and gradients (1e-2 of each leaf's
+   largest entry) on the card against the CPU's, then 16 train steps from
+   a copy of the state on the default copy's draws: K1 once a field call
+   and once a step, finite losses, one 256x256 val view's PSNR beside the
+   default copy's (span_adaptive and group_compact within 1.0 dB, the
+   legacy and two-level train marches at 20 dB or more); (c) a SealTrainer under compaction flat renders a teacher
+   view with no demand probe and K1 once a chunk.
 The line before the last is the kernel table as JSON (nine rows for the
 nine Pallas call sites, K1 over a level range twice, on one card and
 across ranks; hash_encode_bwd is both K2 and K3's backward; each
@@ -581,6 +595,10 @@ def main(argv=None):
         lap("11-12")
         k1_fwd["launches"] += parity_phase(dev, tr7, ds800, ws)
         lap("19")
+        fwd, bwd = march_options_phase(dev, tr7)
+        k1_fwd["launches"] += fwd
+        k1_bwd["launches"] += bwd
+        lap("26")
         del ds800
         k5_rows = lookup_phase(dev, baselines["lookup.cu"])
         lap("13")
@@ -4611,7 +4629,7 @@ def gui_cli_phase(ws, teacher_ckpt):
 # the path's cost and its collective bytes, not scaling.
 PAR_VIEWS, PAR_HW, PAR_VAL = 24, 128, 4
 PAR_FIRST = 16          # steps after the first grid update, before the next
-PAR_LOOP = 200          # (b)'s steps with grid updates, before val PSNR
+PAR_LOOP = 100          # (b)'s steps with grid updates, before val PSNR
 PAR_WORLD1_STEPS = 8    # (a)
 PAR_TIMEOUT = 300.0     # each launch's own timeout
 # (b)'s val PSNR: dp2 and one process at each seed (init and draws), the
@@ -4910,6 +4928,253 @@ def parallel_phase(dev):
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             **encode_bound(x.shape[0], n_valid, len(rng_), 4,
                            table.shape[0], valid_bytes=1)}
+
+
+
+# phase 26: the march options of RenderOptions on phase 7's trained state
+MO_STEPS = 16           # (b)'s train steps under each option
+MO_LOSS_RTOL = 1e-4     # (b): a step's loss on the card vs the CPU
+MO_GRAD_TOL = 1e-2      # (b): its gradients, of each leaf's largest entry
+MO_NEAR_DB = 1.0        # span_adaptive and the grouped march: other samples
+MO_MIN_DB = 20.0        # the legacy and two-level train marches: a floor
+MO_MARCH_ATOL = 1e-6    # (a): the card's floats on valid slots vs the CPU's
+MO_PROXY_VIEWS = 2      # (c): the views proxy_datasets renders
+
+
+def march_options_marches(opts, n):
+    """{name: march(rays_o, rays_d, bitfield, aabb, jitter) -> MarchedRays}
+    of the train march under each option of phase 26 at opts' train point,
+    n rays."""
+    from seal3d_tpu_torch.ops import raymarch as rm
+    from seal3d_tpu_torch.render.renderer import flat_budget
+
+    budget, k = flat_budget(n, opts), opts.budget_per_ray
+    one = dict(bound=opts.bound, cascades=opts.cascades,
+               max_steps=opts.max_steps, min_near=opts.min_near,
+               num_candidates=opts.num_candidates)
+    flat = dict(one, k=k, budget=budget, dt_gamma=opts.dt_gamma,
+                occ_stride=opts.occ_stride, coarse_steps=opts.coarse_steps)
+    grouped = dict(one, k=k, budget=budget, occ_stride=opts.occ_stride,
+                   coarse_steps=opts.coarse_steps)
+
+    def f(fn, **kw):
+        return lambda ro, rd, bf, aabb, jit: fn(ro, rd, bf, aabb=aabb,
+                                                perturb=jit, **kw)
+
+    return {
+        "sort": f(rm.march_rays_flat, **flat),
+        "span_adaptive": f(rm.march_rays_flat, span_adaptive=True, **flat),
+        "group_compact": f(rm.march_rays_flat_grouped, **grouped),
+        "legacy_flat": f(rm.march_rays, dt_gamma=opts.dt_gamma,
+                         budget=n * k, **one),
+        "two_level_train": f(rm.march_rays_flat_2level, k=k, budget=budget,
+                             occ_stride=opts.occ_stride,
+                             coarse_steps=opts.coarse_steps,
+                             group=opts.tl_group, kg=opts.tl_kg,
+                             pool=opts.tl_pool, **one),
+    }
+
+
+def packs_differ(a, b, atol) -> list:
+    """The fields of two MarchedRays that differ: valid, ray_id, offsets
+    and counts exactly; the floats on a's valid slots beyond atol."""
+    bad = [f for f in ("valid", "ray_id", "offsets", "counts")
+           if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())]
+    v = a.valid.cpu()
+    for f in ("xyzs", "dirs", "deltas", "ts"):
+        x, y = getattr(a, f).cpu()[v], getattr(b, f).cpu()[v]
+        if x.shape != y.shape or float((x - y).abs().max()) > atol:
+            bad.append(f)
+    return bad
+
+
+def step_card_vs_cpu(t, rand) -> dict:
+    """One train step's loss and gradients from t's state on the card
+    against the same step on the CPU (the kernels' plain versions there):
+    the loss's relative difference, the sample counts, and the leaf whose
+    gradient is furthest off, as a share of that leaf's largest entry on
+    the CPU. No parameter moves."""
+    from seal3d_tpu_torch.train.checkpoint import flatten_tree, map_tree
+
+    st, batch = t.state, t.sample_batch(rand)
+
+    def step(to):
+        loss, grads, out = t.loss_and_grads(
+            map_tree(st.params, lambda _, x: to(x)),
+            type(st.occ)(*map(to, st.occ)),
+            {k: to(v) for k, v in batch.items()}, to(rand.jitter))
+        return (float(loss), dict(flatten_tree(grads)),
+                int(out["num_samples"]))
+
+    (lg, gg, ng), (lc, gc, nc) = step(lambda x: x), step(
+        lambda x: None if x is None else x.cpu())
+    errs = {k: float((gg[k].cpu() - v).abs().max())
+            / max(float(v.abs().max()), 1e-30) for k, v in gc.items()}
+    worst = max(errs, key=errs.get)
+    return {"loss_rel": abs(lg - lc) / abs(lc), "samples": (ng, nc),
+            "worst": worst, "grad_err": errs[worst]}
+
+
+def march_options_phase(dev, tr7):
+    """Phase 26 -> (K1 forward, K1 backward launches): the march options of
+    RenderOptions at the full -O width on phase 7's trained state. (a) One
+    4096-ray train batch (its jitter included) through each option's train
+    march on the card and the same functions on the CPU: valid, ray_id,
+    offsets and counts exact, floats on valid slots within MO_MARCH_ATOL.
+    (flat_select='gather' packs by the sort pack in the port: nothing of
+    its own to run.) (b) Under each option (span_adaptive, group_compact,
+    compaction flat, march_two_level) and the default: the first step's
+    loss and gradients on the card against the same step on the CPU
+    (MO_LOSS_RTOL, MO_GRAD_TOL of each leaf's largest entry, equal sample
+    counts), then MO_STEPS train steps from a copy of the state, on the
+    draws of the default copy's: K1 launches equal to the field calls,
+    finite losses, one 256x256 val view's PSNR beside the default copy's
+    (gates MO_NEAR_DB, MO_MIN_DB).
+    The legacy copy retunes no budget and probes no eval demand. (c) A
+    SealTrainer (bbox) on the state with compaction flat renders one
+    teacher view and proxies MO_PROXY_VIEWS views: no demand probe, no
+    per-chunk fractions, K1 once a chunk; the student (the teacher's
+    params, unedited) against the teacher printed."""
+    from seal3d_tpu_torch.config import common_parser, load_dataset
+    from seal3d_tpu_torch.data.provider import NeRFDataset
+    from seal3d_tpu_torch.seal.mappers import build_mapper, load_mapper_config
+    from seal3d_tpu_torch.seal.trainer import SealTrainer
+    from seal3d_tpu_torch.train.checkpoint import map_tree
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    opts, ds = tr7.opts, tr7.dataset
+    args = common_parser("chip_smoke").parse_args(
+        O_ARGV + ["--H", "256", "--W", "256"])
+    val = load_dataset(args, "val", device=dev)
+    gt = torch.as_tensor(val.images[0], device=dev).float() / 255.0
+    cfg = dataclasses.replace(tr7.cfg, workspace=None)
+
+    def copy(state):
+        return map_tree(state, lambda _, t: t.clone())
+
+    def trainer(o, name, cls=Trainer, **kw):
+        t = cls(tr7.field, tr7.fcfg, o, cfg, dataset=ds, device=dev,
+                name=name, **kw)
+        t.state = copy(tr7.state)
+        return t
+
+    # --- (a) the marches of one real train batch, card against CPU
+    t_phase = t0 = time.perf_counter()
+    base = trainer(opts, "mo_default")
+    rands = [base.draw_step_random() for _ in range(MO_STEPS)]
+    batch = base.sample_batch(rands[0])
+    st = tr7.state
+    on_card = (batch["rays_o"], batch["rays_d"], st.occ.bitfield,
+               tr7._march_aabb(st.occ.occ_aabb), rands[0].jitter)
+    on_cpu = [a.cpu() for a in on_card]
+    n = on_card[0].shape[0]
+    for name, fn in march_options_marches(opts, n).items():
+        with torch.no_grad():
+            card, cpu = fn(*on_card), fn(*on_cpu)
+            ms = time_ms(lambda: fn(*on_card), 5)
+            dev_ms = busy_ms(lambda: fn(*on_card))
+        bad = packs_differ(cpu, card, MO_MARCH_ATOL)
+        print(f"[march options a] {name}: {int(card.valid.sum())} samples "
+              f"in {card.valid.shape[0]} slots, {ms:.3f} ms a march "
+              f"(device busy {dev_ms:.3f}); card vs CPU "
+              f"{'same' if not bad else 'DIFFER in ' + ', '.join(bad)}")
+        check(not bad, f"phase 26 (a) {name}: card and CPU differ in {bad}")
+    print(f"[march options a] {time.perf_counter() - t0:.2f} s")
+
+    # --- (b) training under each option on the default copy's draws
+    variants = {"default": {}, "span_adaptive": dict(span_adaptive=True),
+                "group_compact": dict(group_compact=True),
+                "legacy_flat": dict(compaction="flat"),
+                "two_level_train": dict(march_two_level=True)}
+    fwd_all = bwd_all = 0
+    db = {}
+    for name, kw in variants.items():
+        t0 = time.perf_counter()
+        t = base if name == "default" else trainer(
+            dataclasses.replace(opts, **kw), f"mo_{name}")
+        sc = step_card_vs_cpu(t, rands[0])
+        print(f"[march options b] {name}: first step card vs CPU: loss rel "
+              f"{sc['loss_rel']:.3e}, samples {sc['samples'][0]} / "
+              f"{sc['samples'][1]}, worst gradient {sc['worst']} "
+              f"{sc['grad_err']:.3e} of its largest entry")
+        check(sc["loss_rel"] <= MO_LOSS_RTOL
+              and sc["samples"][0] == sc["samples"][1]
+              and sc["grad_err"] <= MO_GRAD_TOL,
+              f"phase 26 {name}: the first step on the card vs the CPU {sc}")
+        probes = []
+        demand = t._eval_demand
+        t._eval_demand = lambda *a: probes.append(1) or demand(*a)
+        t1 = time.perf_counter()
+        losses, fwd, bwd = k1_counted(
+            lambda: [float(t.train_step(r)["loss"]) for r in rands])
+        step_ms = (time.perf_counter() - t1) / MO_STEPS * 1e3
+        if name == "legacy_flat":
+            t._retune_budget()
+        (img, _), rfwd, _ = k1_counted(
+            lambda: t.render_image(val.poses[0], val.h, val.w))
+        s_ = t.render_stats[-1]
+        if name == "legacy_flat":   # no budget retune, no demand probe
+            check(t.opts.flat_frac == opts.flat_frac and not probes,
+                  f"phase 26 legacy: flat_frac {t.opts.flat_frac}, "
+                  f"{len(probes)} eval demand probes")
+        db[name] = psnr(img.clamp(0, 1), gt[..., :3])
+        fwd_all += fwd + rfwd
+        bwd_all += bwd
+        print(f"[march options b] {name}: {MO_STEPS} steps, {step_ms:.2f} "
+              f"ms a step (the first included), losses {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}, K1 fwd {fwd} bwd {bwd}; val view 0 "
+              f"{db[name]:.3f} dB in {s_['seconds']:.3f} s "
+              f"({s_['chunks_rendered']} chunks, K1 {rfwd}, {s_['samples']} "
+              f"samples, buckets {s_['buckets']}); "
+              f"{time.perf_counter() - t0:.2f} s")
+        check(np.isfinite(losses).all(), f"phase 26 {name}: loss {losses}")
+        check(fwd == MO_STEPS and bwd == MO_STEPS,
+              f"phase 26 {name}: K1 {fwd} / {bwd} for {MO_STEPS} steps")
+        check(rfwd == s_["chunks_rendered"] and s_["nonfinite"] == 0,
+              f"phase 26 {name}: K1 {rfwd} for {s_['chunks_rendered']} "
+              f"chunks, {s_['nonfinite']} non-finite")
+    gaps = {k: round(v - db["default"], 3) for k, v in db.items()}
+    print(f"[march options b] val PSNR against the default copy's "
+          f"{db['default']:.3f} dB: {json.dumps(gaps)}")
+    for name in ("span_adaptive", "group_compact"):
+        check(abs(gaps[name]) <= MO_NEAR_DB,
+              f"phase 26 {name} {gaps[name]} dB from the default")
+    for name in ("legacy_flat", "two_level_train"):
+        check(db[name] >= MO_MIN_DB, f"phase 26 {name} {db[name]:.2f} dB")
+
+    # --- (c) Seal teacher renders under the legacy compaction
+    t0 = time.perf_counter()
+    mapper = build_mapper(load_mapper_config(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "seal_config_bbox")))
+    flat = dataclasses.replace(opts, compaction="flat")
+    sealt = trainer(flat, "mo_seal", cls=SealTrainer, mapper=mapper,
+                    teacher_params=st.ema_params,
+                    teacher_bitfield=st.occ.bitfield)
+    sealt.attach_dataset(NeRFDataset(
+        poses=ds.poses[:MO_PROXY_VIEWS], images=ds.images[:MO_PROXY_VIEWS],
+        intrinsics=ds.intrinsics, h=ds.h, w=ds.w))
+    probes = []
+    demand = sealt._teacher_demand
+    sealt._teacher_demand = lambda *a: probes.append(1) or demand(*a)
+    (timg, _), tfwd, _ = k1_counted(
+        lambda: sealt.render_teacher_view(val.poses[0], val.h, val.w))
+    _, pfwd, _ = k1_counted(sealt.proxy_datasets)
+    simg, _ = sealt.render_image(val.poses[0], val.h, val.w)
+    chunks = -(-val.h * val.w // min(cfg.eval_chunk, val.h * val.w))
+    print(f"[march options c] Seal teacher under compaction flat: "
+          f"{len(probes)} demand probes; a view K1 {tfwd} ({chunks} chunks), "
+          f"proxy_datasets of {MO_PROXY_VIEWS} views K1 {pfwd} (per-chunk "
+          f"fractions: {sealt.proxy_stats or 'none'}); the student (the "
+          f"teacher's params) against the mapped teacher "
+          f"{psnr(simg.clamp(0, 1), timg.clamp(0, 1)):.2f} dB; "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(not probes and not sealt.proxy_stats and tfwd == chunks
+          and pfwd == MO_PROXY_VIEWS * chunks
+          and bool(torch.isfinite(timg).all()),
+          f"phase 26 (c): {len(probes)} probes, K1 {tfwd} / {pfwd}")
+    print(f"[march options] phase 26: {time.perf_counter() - t_phase:.1f} s "
+          f"(budget 45)")
+    return fwd_all + tfwd + pfwd, bwd_all
 
 
 if __name__ == "__main__":

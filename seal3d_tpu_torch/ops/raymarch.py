@@ -1,7 +1,8 @@
 """Occupancy-grid ray marching (port of seal3d_tpu/ops/raymarch.py): the
-single-level train march (candidate ladder, `[N, K]` grid and flat packed
-layouts) and the two-level eval march, whose level 1 can come from the
-ladder kernel K4 (`ladder_plan_kernel`, `march_rays_flat_2level_kernel`).
+single-level march (candidate ladder, uniform, cone-stepped or span-adaptive;
+`[N, K]` grid and flat packed layouts), the group-granular march, the legacy scatter compaction, and the
+two-level eval march, whose level 1 can come from the ladder kernel K4
+(`ladder_plan_kernel`, `march_rays_flat_2level_kernel`).
 
 The march keeps the reference's static-shape design (fixed candidate ladder,
 occupancy tests as gathers, packing by one sort of unique flat-index keys,
@@ -160,6 +161,10 @@ def pooled_dilated(bitfield: torch.Tensor, cascades: int,
     d = d[:, :, :-2] | d[:, :, 1:-1] | d[:, :, 2:]
     d = d[..., :-2] | d[..., 1:-1] | d[..., 2:]
     return d.reshape(-1)
+
+
+def pooled_dilated32(bitfield: torch.Tensor, cascades: int) -> torch.Tensor:
+    return pooled_dilated(bitfield, cascades, 32)
 
 
 class MarchedRays(NamedTuple):
@@ -404,11 +409,13 @@ def march_rays_flat_2level_kernel(rays_o, rays_d, bitfield, bound: float,
 
 def candidate_ts(nears: torch.Tensor, fars: torch.Tensor, num_steps: int,
                  dt_gamma: float, bound: float, max_steps: int,
-                 perturb: Optional[torch.Tensor] = None):
+                 perturb: Optional[torch.Tensor] = None,
+                 span_adaptive: bool = False):
     """Cone-stepped candidate distances: (ts, dts, valid) [N, num_steps] with
     dt = clamp(t * dt_gamma, dt_min, dt_max); `perturb` [N] in [0, 1)
-    jitters the start by up to one dt_min. (The reference's span_adaptive
-    ladder is left out of the port: ROADMAP.md, 'Not to port'.)"""
+    jitters the start by up to one dt_min. span_adaptive (dt_gamma == 0
+    only): each ray steps by its span / num_steps clipped to [dt_min,
+    dt_max], so the ladder always covers [near, far]."""
     dt_min = 2.0 * SQRT3 / max_steps
     dt_max = 2.0 * SQRT3 * bound / GRID_SIZE
     t0 = nears
@@ -416,8 +423,15 @@ def candidate_ts(nears: torch.Tensor, fars: torch.Tensor, num_steps: int,
         t0 = t0 + perturb * dt_min
     if dt_gamma <= 0.0:
         k = torch.arange(num_steps, dtype=torch.float32, device=nears.device)
-        ts = t0[:, None] + k[None, :] * dt_min
-        dts = torch.full_like(ts, dt_min)
+        if span_adaptive:
+            # max then min, as jnp.clip: no gradient passes through here
+            dt_ray = ((fars - nears) / num_steps).clamp(min=dt_min) \
+                .clamp(max=dt_max)
+            ts = t0[:, None] + k[None, :] * dt_ray[:, None]
+            dts = dt_ray[:, None].expand(ts.shape)
+        else:
+            ts = t0[:, None] + k[None, :] * dt_min
+            dts = torch.full_like(ts, dt_min)
     else:  # the reference's lax.scan, one step per column
         t, ts_l, dts_l = t0, [], []
         for _ in range(num_steps):
@@ -435,7 +449,8 @@ def march_candidates(rays_o, rays_d, bitfield, bound: float, cascades: int,
                      perturb: Optional[torch.Tensor] = None,
                      min_near: float = 0.05,
                      aabb: Optional[torch.Tensor] = None,
-                     occ_stride: int = 2, coarse_steps: int = 0):
+                     occ_stride: int = 2, coarse_steps: int = 0,
+                     span_adaptive: bool = False):
     """Occupancy-tested candidate ladder: (ts, dts, valid) [N, C] with
     validity = in-interval AND occupied AND in-bounds. Occupancy is tested
     at every occ_stride-th candidate and repeated to its neighbours."""
@@ -450,7 +465,8 @@ def march_candidates(rays_o, rays_d, bitfield, bound: float, cascades: int,
                                      cascades, bound, n_steps=coarse_steps,
                                      dt_gamma=dt_gamma, max_steps=max_steps)
     ts, dts, valid = candidate_ts(nears, fars, num_candidates, dt_gamma,
-                                  bound, max_steps, perturb)
+                                  bound, max_steps, perturb,
+                                  span_adaptive=span_adaptive)
     xyz = rays_o[:, None, :] + ts[..., None] * rays_d[:, None, :]
     if occ_stride > 1 and num_candidates % occ_stride == 0:
         occ = occupancy_at(xyz[:, ::occ_stride], dts[:, ::occ_stride],
@@ -503,13 +519,32 @@ def march_rays_grid(rays_o, rays_d, bitfield, bound: float, cascades: int,
                     perturb: Optional[torch.Tensor] = None,
                     min_near: float = 0.05,
                     aabb: Optional[torch.Tensor] = None,
-                    occ_stride: int = 2, coarse_steps: int = 0) -> MarchedGrid:
+                    occ_stride: int = 2, coarse_steps: int = 0,
+                    span_adaptive: bool = False) -> MarchedGrid:
     """Occupancy march into the per-ray [N, K] layout (compact_topk)."""
     ts, dts, valid = march_candidates(
         rays_o, rays_d, bitfield, bound, cascades, dt_gamma, max_steps,
         num_candidates, perturb=perturb, min_near=min_near, aabb=aabb,
-        occ_stride=occ_stride, coarse_steps=coarse_steps)
+        occ_stride=occ_stride, coarse_steps=coarse_steps,
+        span_adaptive=span_adaptive)
     return compact_topk(ts, dts, valid, rays_o, rays_d, k)
+
+
+def compact_grid_to_flat(m: MarchedGrid, budget: int) -> MarchedRays:
+    """Pack the valid samples of an [N, K] march into a flat [budget] buffer
+    in (ray, t) order; overflow drops the trailing rays' samples."""
+    n, k = m.deltas.shape
+    nk = n * k
+    sel, valid_f = _pack(m.valid.reshape(-1), budget)
+    ray_id = sel // k
+    counts = m.valid.sum(1)
+    starts = _excl_cumsum(counts)
+    kept = (starts + counts).clamp(max=budget) - starts.clamp(max=budget)
+    return MarchedRays(
+        xyzs=m.xyzs.reshape(nk, 3)[sel], dirs=m.dirs.reshape(nk, 3)[sel],
+        deltas=m.deltas.reshape(-1)[sel], ts=m.ts.reshape(-1)[sel],
+        ray_id=ray_id.clamp(0, n - 1), valid=valid_f,
+        offsets=starts.clamp(max=budget), counts=kept.clamp(min=0))
 
 
 def compact_flat_direct(ts, dts, valid, rays_o, rays_d, k: int,
@@ -572,15 +607,133 @@ def march_rays_flat(rays_o, rays_d, bitfield, bound: float, cascades: int,
                     min_near: float = 0.05,
                     aabb: Optional[torch.Tensor] = None,
                     occ_stride: int = 2,
-                    coarse_steps: int = 0, shards: int = 1) -> MarchedRays:
+                    coarse_steps: int = 0, span_adaptive: bool = False,
+                    select: str = "sort", shards: int = 1) -> MarchedRays:
     """Occupancy march straight to the flat packed layout (the train fast
-    path; the reference's select='sort'), packed per ray slice where
-    shards > 1 (`compact_flat_sharded`)."""
+    path), packed by one sort (compact_flat_direct), per ray slice where
+    shards > 1 (`compact_flat_sharded`). `select` is taken for the
+    reference's signature and changes nothing: its 'gather' pack (rank
+    inversion) gives the sort pack's packing, and packs slower on an H100
+    (PERF.md)."""
     ts, dts, valid = march_candidates(
         rays_o, rays_d, bitfield, bound, cascades, dt_gamma, max_steps,
         num_candidates, perturb=perturb, min_near=min_near, aabb=aabb,
-        occ_stride=occ_stride, coarse_steps=coarse_steps)
+        occ_stride=occ_stride, coarse_steps=coarse_steps,
+        span_adaptive=span_adaptive)
     if shards > 1:
         return compact_flat_sharded(ts, dts, valid, rays_o, rays_d, k,
                                     budget, shards)
     return compact_flat_direct(ts, dts, valid, rays_o, rays_d, k, budget)
+
+
+def march_rays_flat_grouped(rays_o, rays_d, bitfield, bound: float,
+                            cascades: int, max_steps: int, k: int,
+                            budget: int, num_candidates: int,
+                            perturb: Optional[torch.Tensor] = None,
+                            min_near: float = 0.05,
+                            aabb: Optional[torch.Tensor] = None,
+                            occ_stride: int = 4,
+                            coarse_steps: int = 0) -> MarchedRays:
+    """Group-granular flat march (uniform ladder, dt_gamma == 0): select and
+    pack run on [N, C/s] group representatives, the first of each run of
+    s = occ_stride candidates (the occupancy bit is constant over the run).
+    Over-budget rays keep every stride-th valid group (deltas times the
+    stride), the budget is spent in whole groups (budget // s of them), and
+    each kept group expands to its s candidates t0 + idx * dt_min. Members
+    that fail ts < far or the bound at a ray's far end stay in its segment
+    as valid=False slots, and `counts` includes them."""
+    g = occ_stride
+    n = rays_o.shape[0]
+    cg = num_candidates // g
+    kg = max(k // g, 1)
+    budget_g = budget // g
+    if aabb is None:
+        aabb = torch.tensor([-bound] * 3 + [bound] * 3, dtype=torch.float32,
+                            device=rays_o.device)
+    nears, fars = near_far_from_aabb(rays_o, rays_d, aabb, min_near)
+    if coarse_steps > 0:
+        nears, fars = coarse_tighten(rays_o, rays_d, bitfield, nears, fars,
+                                     cascades, bound, n_steps=coarse_steps,
+                                     max_steps=max_steps)
+    dt_min = 2.0 * SQRT3 / max_steps
+    t0 = nears
+    if perturb is not None:
+        t0 = t0 + perturb * dt_min
+    gk = torch.arange(cg, dtype=torch.float32, device=rays_o.device) \
+        * (g * dt_min)
+    ts_g = t0[:, None] + gk[None, :]
+    xyz_g = rays_o[:, None, :] + ts_g[..., None] * rays_d[:, None, :]
+    occ = occupancy_at(xyz_g, torch.full_like(ts_g, dt_min), bitfield,
+                       cascades, bound)
+    valid_g = (ts_g < fars[:, None]) & occ & (xyz_g.abs().amax(-1) <= bound)
+    keep, stride = ray_stride_keep(valid_g, kg)
+    selg, kept_g = _pack(keep.reshape(-1), budget_g)
+    ray_g = selg // cg
+    j = torch.arange(g, dtype=torch.int64, device=rays_o.device)
+    cand = ((selg % cg)[:, None] * g + j[None, :]).reshape(-1)
+    ray_id = ray_g.repeat_interleave(g)
+    ts_f = t0[ray_id] + cand.to(torch.float32) * dt_min
+    dts_f = dt_min * stride[:, 0][ray_id].to(torch.float32)
+    rd = rays_d[ray_id]
+    xyzs = rays_o[ray_id] + ts_f[:, None] * rd
+    valid_f = (kept_g.repeat_interleave(g) & (ts_f < fars[ray_id])
+               & (xyzs.abs().amax(-1) <= bound))
+    counts = keep.sum(1) * g
+    starts = _excl_cumsum(counts)
+    kept = (starts + counts).clamp(max=budget) - starts.clamp(max=budget)
+    return MarchedRays(
+        xyzs=xyzs, dirs=rd, deltas=dts_f, ts=ts_f,
+        ray_id=ray_id.clamp(0, n - 1), valid=valid_f,
+        offsets=starts.clamp(max=budget), counts=kept.clamp(min=0))
+
+
+# ------------------------------------------------- legacy flat compaction
+
+def compact_samples(ts, dts, valid, rays_o, rays_d,
+                    budget: int) -> MarchedRays:
+    """Candidates [N, T] -> flat [budget] buffer by cumsum slots (the
+    reference's scatter compaction, RenderOptions.compaction='flat'):
+    samples keep their (ray, t) order, and a sample whose slot falls past
+    the budget is dropped, so the trailing rays lose theirs (no thinning).
+    Slots no sample reaches hold zeros and valid=False."""
+    n, t = ts.shape
+    rank = torch.cumsum(valid.to(torch.int64), dim=1)
+    counts = rank[:, -1]
+    offsets = _excl_cumsum(counts)
+    g = offsets[:, None] + rank - 1
+    in_budget = valid & (g < budget) & (g >= 0)
+    # source candidate of each slot; the dropped ones all land in the dump
+    # slot `budget`, whose writes collide and are discarded
+    src = torch.full((budget + 1,), -1, dtype=torch.int64, device=ts.device)
+    src[torch.where(in_budget, g, budget).reshape(-1)] = torch.arange(
+        n * t, dtype=torch.int64, device=ts.device)
+    src = src[:budget]
+    valid_f = src >= 0
+    src = src.clamp(min=0)
+    ray_id = torch.where(valid_f, src // t, 0)
+    ts_f = torch.where(valid_f, ts.reshape(-1)[src], 0.0)
+    rd = torch.where(valid_f[:, None], rays_d[ray_id], 0.0)
+    xyzs = torch.where(valid_f[:, None], rays_o[ray_id] + ts_f[:, None] * rd,
+                       0.0)
+    kept = ((offsets + counts).clamp(max=budget)
+            - offsets.clamp(max=budget)).clamp(min=0)
+    return MarchedRays(
+        xyzs=xyzs, dirs=rd, deltas=torch.where(valid_f, dts.reshape(-1)[src],
+                                                0.0),
+        ts=ts_f, ray_id=ray_id, valid=valid_f,
+        offsets=offsets.clamp(max=budget), counts=kept)
+
+
+def march_rays(rays_o, rays_d, bitfield, bound: float, cascades: int,
+               dt_gamma: float, max_steps: int, budget: int,
+               num_candidates: Optional[int] = None,
+               perturb: Optional[torch.Tensor] = None,
+               min_near: float = 0.05,
+               aabb: Optional[torch.Tensor] = None) -> MarchedRays:
+    """The legacy march: AABB clip, candidate ladder, a bit test at every
+    candidate (no coarse tightening, no occ_stride), compact_samples."""
+    ts, dts, valid = march_candidates(
+        rays_o, rays_d, bitfield, bound, cascades, dt_gamma, max_steps,
+        num_candidates, perturb=perturb, min_near=min_near, aabb=aabb,
+        occ_stride=1)
+    return compact_samples(ts, dts, valid, rays_o, rays_d, budget)

@@ -4,14 +4,17 @@
 `render_rays` marches a ray batch, queries the field once on the samples and
 composites them. Its branches, as in the reference: the packed flat branch
 (flat_frac < 1) with the two-level march (the -O eval and full-image point;
-with `tl_kernel` its group plan comes from the ladder kernel K4)
-or the single-level march (the -O train point once the adaptive budget has
-picked a bucket, and every eval at bound > 1), its transmittance-terminated
-rounds (term_rounds > 1, on either march), and the [N, K] grid branch
-(flat_frac None: the train steps before the first budget retune). The
-legacy flat path raises NotImplementedError. `render_rays_dense` is the
-dense oracle: stratified samples, then importance samples from their
-weights (`--dense_render`).
+with `tl_kernel` its group plan comes from the ladder kernel K4), the
+group-granular march (`group_compact`, where its gate holds) or the
+single-level march (the -O train point once the adaptive budget has picked a
+bucket, and every eval at bound > 1; uniform, cone-stepped or
+span-adaptive ladder), its transmittance-terminated rounds (term_rounds > 1,
+on either march), the [N, K] grid branch (flat_frac None: the train steps
+before the first budget retune), and the legacy flat compaction
+(compaction != 'topk': every candidate tested, scatter-packed into
+N * budget_per_ray slots). `render_rays_dense` is the dense oracle:
+stratified samples, then importance samples from their weights
+(`--dense_render`).
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ from torch.profiler import record_function
 from seal3d_tpu_torch.ops.composite import composite_dense, composite_flat
 from seal3d_tpu_torch.ops.raymarch import (SQRT3, MarchedRays,
                                            compact_flat_direct, group_plan,
-                                           march_candidates, march_rays_flat,
+                                           march_candidates, march_rays,
+                                           march_rays_flat,
                                            march_rays_flat_2level,
                                            march_rays_flat_2level_kernel,
+                                           march_rays_flat_grouped,
                                            march_rays_grid,
                                            near_far_from_aabb,
                                            pack_groups_expand_fine,
@@ -170,7 +175,7 @@ def _render_rounds(params, field, cfg, bitfield, rays_o, rays_d,
             rays_o, rays_d, bitfield, opts.bound, opts.cascades,
             opts.dt_gamma, opts.max_steps, c, perturb=jitter,
             min_near=opts.min_near, aabb=aabb, occ_stride=opts.occ_stride,
-            coarse_steps=opts.coarse_steps)
+            coarse_steps=opts.coarse_steps, span_adaptive=opts.span_adaptive)
         cs = c // rounds               # candidate columns a round
         k_r = max(-(-k // rounds), 1)
     tau = rays_o.new_zeros(n)
@@ -210,15 +215,29 @@ def _render_rounds(params, field, cfg, bitfield, rays_o, rays_d,
     return {"image": image, "depth": depth, "weights_sum": wsum}, num_samples
 
 
+def _grouped_ok(opts: RenderOptions, budget: int) -> bool:
+    """The reference's gate of the group-granular march: group_compact on
+    the uniform ladder, groups of occ_stride > 1 that divide the candidates,
+    k and the budget; elsewhere the single-level march renders."""
+    s = opts.occ_stride
+    return (opts.group_compact and opts.dt_gamma == 0.0
+            and not opts.span_adaptive and s > 1
+            and opts.num_candidates % s == 0
+            and opts.budget_per_ray % s == 0 and budget % s == 0)
+
+
 def march_flat(rays_o, rays_d, bitfield, opts: RenderOptions,
                aabb: torch.Tensor,
                jitter: Optional[torch.Tensor] = None,
                ladder_tables=None) -> MarchedRays:
     """The packed sample buffer the flat branch of `render_rays` feeds the
     field: the two-level march where `two_level_ok` (the eval point), its
-    level 1 from the ladder kernel K4 where `tl_kernel_ok`; else the
-    single-level march (the train point). `ladder_tables`: the kernel's
-    `pack_tables(bitfield, opts.tl_pool)`, where the caller has built it."""
+    level 1 from the ladder kernel K4 where `tl_kernel_ok`; the
+    group-granular march where `_grouped_ok`; else the single-level march
+    (the train point) on opts.span_adaptive's ladder, packed by one sort
+    whatever flat_select says (the reference's two packs give the same
+    packing). `ladder_tables`: the kernel's `pack_tables(bitfield,
+    opts.tl_pool)`, where the caller has built it."""
     k = opts.budget_per_ray
     budget = flat_budget(rays_o.shape[0], opts)
     if opts.tl_kernel_ok(k, jitter):
@@ -238,16 +257,19 @@ def march_flat(rays_o, rays_d, bitfield, opts: RenderOptions,
             occ_stride=opts.occ_stride, coarse_steps=opts.coarse_steps,
             group=opts.tl_group, over=opts.tl_over, kg=opts.tl_kg,
             pool=opts.tl_pool)
-    if opts.group_compact or opts.flat_select != "sort" or opts.span_adaptive:
-        raise NotImplementedError(
-            "group_compact, flat_select='gather' and span_adaptive are left "
-            "out of the port (ROADMAP.md, 'Not to port')")
+    if _grouped_ok(opts, budget):
+        return march_rays_flat_grouped(
+            rays_o, rays_d, bitfield, bound=opts.bound,
+            cascades=opts.cascades, max_steps=opts.max_steps, k=k,
+            budget=budget, num_candidates=opts.num_candidates,
+            perturb=jitter, min_near=opts.min_near, aabb=aabb,
+            occ_stride=opts.occ_stride, coarse_steps=opts.coarse_steps)
     return march_rays_flat(
         rays_o, rays_d, bitfield, bound=opts.bound, cascades=opts.cascades,
         dt_gamma=opts.dt_gamma, max_steps=opts.max_steps, k=k, budget=budget,
         num_candidates=opts.num_candidates, perturb=jitter,
         min_near=opts.min_near, aabb=aabb, occ_stride=opts.occ_stride,
-        coarse_steps=opts.coarse_steps,
+        coarse_steps=opts.coarse_steps, span_adaptive=opts.span_adaptive,
         shards=pack_shards(rays_o.shape[0], opts))
 
 
@@ -264,19 +286,34 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
     flat_frac None (or >= 1) selects the [N, K] grid branch, else the packed
     flat branch: in transmittance-terminated rounds where `_rounds_ok`
     (`_render_rounds`), else in one (march_flat, which takes
-    `ladder_tables`).
+    `ladder_tables`). compaction != 'topk' selects the legacy flat march
+    (`march_rays`, N * budget_per_ray slots) whatever flat_frac says; its
+    field query takes no valid mask and its composite is the scatter one,
+    as in the reference.
     With bg_radius > 0 the field's background net paints what the samples
     leave uncovered (`_background`).
     Returns dict(image [N, 3], depth [N], weights_sum [N], num_samples []).
     """
     n = rays_o.shape[0]
     k = opts.budget_per_ray
-    if opts.compaction != "topk":
-        raise NotImplementedError("the legacy 'flat' compaction is left out of "
-                                  "the port (ROADMAP.md, 'Not to port')")
     if aabb is None:
         aabb = torch.tensor(opts.aabb, dtype=torch.float32, device=rays_o.device)
-    if _rounds_ok(opts):
+    if opts.compaction != "topk":
+        with record_function("render.march"):
+            mf = march_rays(
+                rays_o, rays_d, bitfield, bound=opts.bound,
+                cascades=opts.cascades, dt_gamma=opts.dt_gamma,
+                max_steps=opts.max_steps, budget=n * k,
+                num_candidates=opts.num_candidates, perturb=jitter,
+                min_near=opts.min_near, aabb=aabb)
+        with record_function("render.field"):
+            sigma, rgb = field.apply(params, cfg, mf.xyzs, mf.dirs)
+        with record_function("render.composite"):
+            sigma = torch.where(mf.valid, sigma * opts.density_scale, 0.0)
+            out = composite_flat(sigma, rgb, mf.deltas, mf.ts, mf.ray_id,
+                                 mf.offsets, mf.valid, n)
+        num_samples = mf.valid.sum()
+    elif _rounds_ok(opts):
         out, num_samples = _render_rounds(params, field, cfg, bitfield,
                                           rays_o, rays_d, opts, jitter, aabb)
     elif opts.flat_frac is not None and opts.flat_frac < 1.0:
@@ -300,7 +337,8 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
                 max_steps=opts.max_steps, k=k,
                 num_candidates=opts.num_candidates, perturb=jitter,
                 min_near=opts.min_near, aabb=aabb, occ_stride=opts.occ_stride,
-                coarse_steps=opts.coarse_steps)
+                coarse_steps=opts.coarse_steps,
+                span_adaptive=opts.span_adaptive)
         with record_function("render.field"):
             # the reference queries every grid slot (no valid mask) here
             sigma, rgb = field.apply(params, cfg, m.xyzs.reshape(-1, 3),

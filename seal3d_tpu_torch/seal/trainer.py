@@ -182,7 +182,8 @@ class SealTrainer(Trainer):
         _, _, valid = march_candidates(
             rays_o, rays_d, bitfield, to.bound, to.cascades, to.dt_gamma,
             to.max_steps, to.num_candidates, min_near=to.min_near,
-            occ_stride=to.occ_stride, coarse_steps=to.coarse_steps)
+            occ_stride=to.occ_stride, coarse_steps=to.coarse_steps,
+            span_adaptive=to.span_adaptive)
         rank = torch.cumsum(valid.to(torch.int64), dim=1)
         stride = torch.ceil(rank[:, -1:] / to.budget_per_ray) \
             .to(torch.int64).clamp(min=1)

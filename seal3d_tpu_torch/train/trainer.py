@@ -831,7 +831,8 @@ class Trainer:
         _, _, valid = march_candidates(
             rays_o, rays_d, bitfield, eo.bound, eo.cascades, eo.dt_gamma,
             eo.max_steps, eo.num_candidates, min_near=eo.min_near, aabb=aabb,
-            occ_stride=eo.occ_stride, coarse_steps=eo.coarse_steps)
+            occ_stride=eo.occ_stride, coarse_steps=eo.coarse_steps,
+            span_adaptive=eo.span_adaptive)
         valid = valid & rok
         if plan is not None:
             return torch.stack([valid.sum(), groups])
