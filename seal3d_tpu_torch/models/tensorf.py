@@ -14,7 +14,7 @@ encoding and a 3x128 MLP. The factor lookups (`sample_plane`,
 `sample_line`) are the reference's explicit bilinear / linear formula over
 four / two gathers, zero outside [-1, 1] (not `F.grid_sample`); their
 gradient is autograd's scatter. They run under
-`record_function("tensorf.sample")`. The resolution surgeries
+`span("tensorf.sample")`. The resolution surgeries
 (`upsample_model`, `shrink_model`) run between train segments and return a
 new params tree; the caller re-creates the optimizer state.
 """
@@ -28,12 +28,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from seal3d_tpu_torch.models.mlp import mlp_apply, mlp_init
 from seal3d_tpu_torch.ops.freq import freq_encode, freq_encode_dim
 from seal3d_tpu_torch.ops.morton import morton3d_invert
 from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
+from seal3d_tpu_torch.utils.trace import span
 
 # plane i spans world axes MAT_IDS[i]; line i spans axis VEC_IDS[i]
 MAT_IDS = ((0, 1), (0, 2), (1, 2))
@@ -126,7 +126,7 @@ def sample_plane(plane: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
                  align_corners: bool = True) -> torch.Tensor:
     """Bilinear sample of [R, H, W] at coords in [-1, 1] (zero outside); cx
     indexes W, cy indexes H. Returns [R, N]."""
-    with record_function("tensorf.sample"):
+    with span("tensorf.sample"):
         r, h, w = plane.shape
         inside = (cx.abs() <= 1.0) & (cy.abs() <= 1.0)
         if align_corners:
@@ -154,7 +154,7 @@ def sample_line(line: torch.Tensor, c: torch.Tensor,
                 align_corners: bool = True) -> torch.Tensor:
     """Linear sample of [R, D] at coords in [-1, 1] (zero outside).
     Returns [R, N]."""
-    with record_function("tensorf.sample"):
+    with span("tensorf.sample"):
         r, d = line.shape
         inside = c.abs() <= 1.0
         if align_corners:

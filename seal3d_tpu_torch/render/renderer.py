@@ -25,7 +25,6 @@ from functools import cached_property
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
 from seal3d_tpu_torch.ops.composite import composite_dense, composite_flat
 from seal3d_tpu_torch.ops.raymarch import (SQRT3, MarchedRays,
@@ -39,6 +38,7 @@ from seal3d_tpu_torch.ops.raymarch import (SQRT3, MarchedRays,
                                            near_far_from_aabb,
                                            pack_groups_expand_fine,
                                            sph_from_ray)
+from seal3d_tpu_torch.utils.trace import span
 
 
 @dataclass(frozen=True)
@@ -187,7 +187,7 @@ def _render_rounds(params, field, cfg, bitfield, rays_o, rays_d,
         budget = max(int(round(base * fracs[r] / 128)) * 128, 128)
         sl = slice(r * cs, (r + 1) * cs)
         alive = (tau < tau_max)[:, None]
-        with record_function("render.march"):
+        with span("render.march"):
             if two_level:
                 budget_g = max(-(-int(round(budget * opts.tl_over))
                                  // (g * 16)) * 16, 16)
@@ -199,10 +199,10 @@ def _render_rounds(params, field, cfg, bitfield, rays_o, rays_d,
                 mf = compact_flat_direct(ts[:, sl], dts[:, sl],
                                          valid[:, sl] & alive, rays_o, rays_d,
                                          k_r, budget)
-        with record_function("render.field"):
+        with span("render.field"):
             sigma, rgb = field.apply(params, cfg, mf.xyzs, mf.dirs,
                                      valid=mf.valid)
-        with record_function("render.composite"):
+        with span("render.composite"):
             sigma = torch.where(mf.valid, sigma * opts.density_scale, 0.0)
             o = composite_flat(sigma, rgb, mf.deltas, mf.ts, mf.ray_id,
                                mf.offsets, mf.valid, n, tau_in=tau,
@@ -299,16 +299,16 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
     if aabb is None:
         aabb = torch.tensor(opts.aabb, dtype=torch.float32, device=rays_o.device)
     if opts.compaction != "topk":
-        with record_function("render.march"):
+        with span("render.march"):
             mf = march_rays(
                 rays_o, rays_d, bitfield, bound=opts.bound,
                 cascades=opts.cascades, dt_gamma=opts.dt_gamma,
                 max_steps=opts.max_steps, budget=n * k,
                 num_candidates=opts.num_candidates, perturb=jitter,
                 min_near=opts.min_near, aabb=aabb)
-        with record_function("render.field"):
+        with span("render.field"):
             sigma, rgb = field.apply(params, cfg, mf.xyzs, mf.dirs)
-        with record_function("render.composite"):
+        with span("render.composite"):
             sigma = torch.where(mf.valid, sigma * opts.density_scale, 0.0)
             out = composite_flat(sigma, rgb, mf.deltas, mf.ts, mf.ray_id,
                                  mf.offsets, mf.valid, n)
@@ -317,20 +317,20 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
         out, num_samples = _render_rounds(params, field, cfg, bitfield,
                                           rays_o, rays_d, opts, jitter, aabb)
     elif opts.flat_frac is not None and opts.flat_frac < 1.0:
-        with record_function("render.march"):
+        with span("render.march"):
             mf = march_flat(rays_o, rays_d, bitfield, opts, aabb, jitter,
                             ladder_tables)
-        with record_function("render.field"):
+        with span("render.field"):
             sigma, rgb = field.apply(params, cfg, mf.xyzs, mf.dirs,
                                      valid=mf.valid)
-        with record_function("render.composite"):
+        with span("render.composite"):
             sigma = torch.where(mf.valid, sigma * opts.density_scale, 0.0)
             out = composite_flat(sigma, rgb, mf.deltas, mf.ts, mf.ray_id,
                                  mf.offsets, mf.valid, n,
                                  seg_mode=opts.composite_seg)
         num_samples = mf.valid.sum()
     else:
-        with record_function("render.march"):
+        with span("render.march"):
             m = march_rays_grid(
                 rays_o, rays_d, bitfield, bound=opts.bound,
                 cascades=opts.cascades, dt_gamma=opts.dt_gamma,
@@ -339,11 +339,11 @@ def render_rays(params, field, cfg, bitfield, rays_o, rays_d,
                 min_near=opts.min_near, aabb=aabb, occ_stride=opts.occ_stride,
                 coarse_steps=opts.coarse_steps,
                 span_adaptive=opts.span_adaptive)
-        with record_function("render.field"):
+        with span("render.field"):
             # the reference queries every grid slot (no valid mask) here
             sigma, rgb = field.apply(params, cfg, m.xyzs.reshape(-1, 3),
                                      m.dirs.reshape(-1, 3))
-        with record_function("render.composite"):
+        with span("render.composite"):
             sigma = torch.where(m.valid,
                                 sigma.reshape(n, k) * opts.density_scale, 0.0)
             out = composite_dense(sigma, rgb.reshape(n, k, 3), m.deltas,
@@ -415,7 +415,7 @@ def render_rays_dense(params, field, cfg, rays_o, rays_d, opts: RenderOptions,
         return torch.cat([torch.diff(zv, dim=-1), sample_dist[:, None]], -1)
 
     if opts.upsample_steps > 0:
-        with torch.no_grad(), record_function("render.dense_coarse"):
+        with torch.no_grad(), span("render.dense_coarse"):
             sigma_c = field.density(params, cfg,
                                     positions(z).reshape(-1, 3))["sigma"]
             sigma_c = sigma_c.reshape(z.shape) * opts.density_scale
@@ -430,11 +430,11 @@ def render_rays_dense(params, field, cfg, rays_o, rays_d, opts: RenderOptions,
             z = torch.sort(torch.cat([z, new_z], -1), dim=-1).values
 
     xyz = positions(z)
-    with record_function("render.field"):
+    with span("render.field"):
         sigma, rgb = field.apply(params, cfg, xyz.reshape(-1, 3),
                                  rays_d[:, None].expand(xyz.shape)
                                  .reshape(-1, 3))
-    with record_function("render.composite"):
+    with span("render.composite"):
         out = composite_dense(sigma.reshape(z.shape) * opts.density_scale,
                               rgb.reshape(*z.shape, 3), deltas_of(z), z)
     bg = _background(field, params, cfg, opts, rays_o, rays_d, bg_color)

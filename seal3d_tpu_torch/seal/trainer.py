@@ -47,8 +47,15 @@ from seal3d_tpu_torch.seal.renderer import (cells_to_byte_masks,
 from seal3d_tpu_torch.train import checkpoint as ckpt_io
 from seal3d_tpu_torch.train.optim import Optimizer, apply_updates
 from seal3d_tpu_torch.train.trainer import TrainConfig, Trainer
+from seal3d_tpu_torch.utils.trace import span
 
 _BATCH_KEYS = ("points", "dirs", "sigma", "color", "weight")
+
+# the pretraining's rows over the process, counted on the host as batches
+# are issued: `pretrain_rows` the shells' own rows, `pretrain_slots` the
+# rows computed (the weight-0 padding of each shell's last batch included)
+pretrain_rows = 0
+pretrain_slots = 0
 
 
 @dataclass
@@ -315,23 +322,27 @@ class SealTrainer(Trainer):
 
         # local: inside the edit region, mapped back to the source
         if pcfg.local_point_step > 0:
-            pts, dir_set = sample_grid_points(self.mapper.force_fill_bound,
-                                              pcfg.local_point_step,
-                                              pcfg.local_angle_step)
-            mpts, mdirs, mask = self._edit_mask(pts)
-            if "map_source" in self.mapper.flags:
-                mask = torch.ones_like(mask)
-            keep = torch.nonzero(mask)[:, 0]
-            n_keep = int(keep.shape[0])
-            rng = np.random.default_rng(0)
-            dirs_k = dir_set[rng.integers(0, len(dir_set), n_keep)]
-            mpts_k, mdirs_k = mpts[keep], mdirs[keep]
-            gt_sigma, gt_color = self._teacher_query(mpts_k, mdirs_k)
-            gt_color = map_color(self.mapper, mpts_k, mdirs_k, gt_color)
-            data["local"] = dict(
-                points=torch.from_numpy(pts).to(dev)[keep],
-                dirs=torch.from_numpy(dirs_k).to(dev),
-                sigma=gt_sigma, color=gt_color)
+            with span("seal.sample"):
+                pts, dir_set = sample_grid_points(
+                    self.mapper.force_fill_bound, pcfg.local_point_step,
+                    pcfg.local_angle_step)
+            with span("seal.mask"):
+                mpts, mdirs, mask = self._edit_mask(pts)
+                if "map_source" in self.mapper.flags:
+                    mask = torch.ones_like(mask)
+                keep = torch.nonzero(mask)[:, 0]
+            with span("seal.sample"):
+                rng = np.random.default_rng(0)
+                dirs_k = dir_set[rng.integers(0, len(dir_set),
+                                              int(keep.shape[0]))]
+                pts_k = torch.from_numpy(pts).to(dev)[keep]
+                dirs_k = torch.from_numpy(dirs_k).to(dev)
+            with span("seal.teacher"):
+                mpts_k, mdirs_k = mpts[keep], mdirs[keep]
+                gt_sigma, gt_color = self._teacher_query(mpts_k, mdirs_k)
+                gt_color = map_color(self.mapper, mpts_k, mdirs_k, gt_color)
+            data["local"] = dict(points=pts_k, dirs=dirs_k, sigma=gt_sigma,
+                                 color=gt_color)
 
         # surrounding: the extended bounds minus the edit region
         if pcfg.surrounding_point_step > 0:
@@ -349,9 +360,30 @@ class SealTrainer(Trainer):
             data["global"] = self._outside_shell(
                 aabb[None], pcfg.global_point_step, pcfg.global_angle_step)
 
-        # pad every shell to a whole number of batches: [n_batches, bs, ...];
-        # padding rows repeat row 0 at weight 0
-        bs = pcfg.batch_size
+        with span("seal.pack"):
+            self._pack_shells(data, pcfg.batch_size)
+            self.is_pretraining = True
+            if self.state is None:
+                self.init_state()
+            # the family's pretraining leaves, Adam at a constant learning
+            # rate (no decay: the schedule's horizon is infinite); the others
+            # get no update
+            self._pre_opt = Optimizer(pcfg.lr, math.inf)
+            self._pre_opt_state = self._pre_opt.init(
+                _pretrain_leaves(self.state.params))
+        if pcfg.export_debug and self.cfg.workspace:
+            vis = os.path.join(self.cfg.workspace, "pretrain_vis")
+            os.makedirs(vis, exist_ok=True)
+            for k, v in data.items():
+                geo.export_ply_points(os.path.join(vis, f"{k}.ply"),
+                                      v["points"].cpu().numpy(),
+                                      v["color"].cpu().numpy())
+
+    def _pack_shells(self, data: dict, bs: int):
+        """Pad every shell to a whole number of batches into
+        `pretrain_data`: [n_batches, bs, ...], padding rows repeating row 0
+        at weight 0; `n_rows` is the shell's own rows."""
+        dev = self.device
         self.pretrain_data = {}
         for k, v in data.items():
             n = v["points"].shape[0]
@@ -370,33 +402,23 @@ class SealTrainer(Trainer):
                 "color": v["color"][idx].reshape(nb, bs, 3),
                 "weight": wgt.reshape(nb, bs),
                 "n_batches": nb,
+                "n_rows": n,
             }
-        self.is_pretraining = True
-        if self.state is None:
-            self.init_state()
-        # the family's pretraining leaves, Adam at a constant learning rate
-        # (no decay: the schedule's horizon is infinite); the others get no
-        # update
-        self._pre_opt = Optimizer(pcfg.lr, math.inf)
-        self._pre_opt_state = self._pre_opt.init(
-            _pretrain_leaves(self.state.params))
-        if pcfg.export_debug and self.cfg.workspace:
-            vis = os.path.join(self.cfg.workspace, "pretrain_vis")
-            os.makedirs(vis, exist_ok=True)
-            for k, v in data.items():
-                geo.export_ply_points(os.path.join(vis, f"{k}.ply"),
-                                      v["points"].cpu().numpy(),
-                                      v["color"].cpu().numpy())
 
     def _outside_shell(self, bounds, step, angle_step) -> dict:
-        pts, dir_set = sample_grid_points(bounds, step, angle_step)
-        _, _, mask = self._edit_mask(pts)
-        keep = torch.nonzero(~mask)[:, 0]
-        rng = np.random.default_rng(1)
-        dirs_k = dir_set[rng.integers(0, len(dir_set), int(keep.shape[0]))]
-        pts_k = torch.from_numpy(pts).to(self.device)[keep]
-        dirs_k = torch.from_numpy(dirs_k).to(self.device)
-        sigma, color = self._teacher_query(pts_k, dirs_k)
+        with span("seal.sample"):
+            pts, dir_set = sample_grid_points(bounds, step, angle_step)
+        with span("seal.mask"):
+            _, _, mask = self._edit_mask(pts)
+            keep = torch.nonzero(~mask)[:, 0]
+        with span("seal.sample"):
+            rng = np.random.default_rng(1)
+            dirs_k = dir_set[rng.integers(0, len(dir_set),
+                                          int(keep.shape[0]))]
+            pts_k = torch.from_numpy(pts).to(self.device)[keep]
+            dirs_k = torch.from_numpy(dirs_k).to(self.device)
+        with span("seal.teacher"):
+            sigma, color = self._teacher_query(pts_k, dirs_k)
         return dict(points=pts_k, dirs=dirs_k, sigma=sigma, color=color)
 
     def pretrain_loss(self, params, batch: dict) -> torch.Tensor:
@@ -418,25 +440,32 @@ class SealTrainer(Trainer):
         """One pretrain batch: loss, gradients of the pretraining leaves,
         Adam on them, EMA over every leaf. Returns the loss (a device
         tensor)."""
-        st = self.state
-        moved = _pretrain_leaves(st.params)
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in ckpt_io.flatten_tree(moved)}
-        loss = self.pretrain_loss(
-            {**st.params, **ckpt_io.map_tree(moved, lambda k, _: leaves[k])},
-            batch)
-        grads = dict(zip(leaves, torch.autograd.grad(loss,
-                                                     list(leaves.values()))))
-        with torch.no_grad():
-            updates, self._pre_opt_state = self._pre_opt.update(
-                ckpt_io.map_tree(moved, lambda k, _: grads[k]),
-                self._pre_opt_state)
-            params = {**st.params, **apply_updates(moved, updates)}
-            d = self.cfg.ema_decay
-            ema = ckpt_io.map_trees(lambda e, p: e * d + p * (1.0 - d),
-                                    st.ema_params, params)
-        self.state = st._replace(params=params, ema_params=ema)
-        return loss.detach()
+        with span("pretrain.step"):
+            st = self.state
+            moved = _pretrain_leaves(st.params)
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in ckpt_io.flatten_tree(moved)}
+            with span("pretrain.forward"):
+                loss = self.pretrain_loss(
+                    {**st.params,
+                     **ckpt_io.map_tree(moved, lambda k, _: leaves[k])},
+                    batch)
+            with span("pretrain.backward"):
+                grads = dict(zip(leaves, torch.autograd.grad(
+                    loss, list(leaves.values()))))
+            with torch.no_grad():
+                with span("pretrain.adam"):
+                    updates, self._pre_opt_state = self._pre_opt.update(
+                        ckpt_io.map_tree(moved, lambda k, _: grads[k]),
+                        self._pre_opt_state)
+                    params = {**st.params, **apply_updates(moved, updates)}
+                with span("pretrain.ema"):
+                    d = self.cfg.ema_decay
+                    ema = ckpt_io.map_trees(
+                        lambda e, p: e * d + p * (1.0 - d), st.ema_params,
+                        params)
+            self.state = st._replace(params=params, ema_params=ema)
+            return loss.detach()
 
     def _hack_student_bitfield(self):
         """The student's bitfield must include the (empty) edit region."""
@@ -447,11 +476,19 @@ class SealTrainer(Trainer):
 
     def _shell_losses(self):
         """One pass over every cached shell -> a list of [n_batches] loss
-        tensors, one per shell."""
-        return [torch.stack([self._pretrain_step({k: src[k][b]
-                                                  for k in _BATCH_KEYS})
-                             for b in range(src["n_batches"])])
-                for src in self.pretrain_data.values()]
+        tensors, one per shell; counts the pass's rows in `pretrain_rows`
+        and `pretrain_slots`."""
+        global pretrain_rows, pretrain_slots
+        with span("pretrain.epoch"):
+            out = []
+            for src in self.pretrain_data.values():
+                nb = src["n_batches"]
+                pretrain_rows += src["n_rows"]
+                pretrain_slots += nb * src["weight"].shape[1]
+                out.append(torch.stack([
+                    self._pretrain_step({k: src[k][b] for k in _BATCH_KEYS})
+                    for b in range(nb)]))
+            return out
 
     def pretrain_one_epoch(self) -> float:
         """One pass over all cached shells; the mean batch loss."""
@@ -530,20 +567,24 @@ class SealTrainer(Trainer):
                                         lambda _, t: t.clone()))
         self._dump_run_config(pcfg)
 
-        t0 = time.time()
-        self.init_pretraining(pcfg)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t_init = time.time() - t0
+        # the stage times are time.time() stamps at the edges of their
+        # ranges: the profiler's host clock
+        with span("edit.init"):
+            t0 = time.time()
+            self.init_pretraining(pcfg)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t_init = time.time() - t0
 
         epochs = pcfg.epochs if pretrain_epochs is None else pretrain_epochs
         e = 0
         while e < epochs:  # blocks of <= 10 epochs: one loss sync per block
             n = min(10, epochs - e)
-            t0 = time.time()
-            losses = self.pretrain_epochs(n)
-            self.time_inspector["pretraining"].extend(
-                [(time.time() - t0) / n] * n)
+            with span("pretrain.block"):
+                t0 = time.time()
+                losses = self.pretrain_epochs(n)
+                dt = time.time() - t0
+            self.time_inspector["pretraining"].extend([dt / n] * n)
             self.pretrain_losses.extend(float(v) for v in losses)
             if log:
                 self._log(f"[pretrain] epochs {e}-{e + n - 1} "

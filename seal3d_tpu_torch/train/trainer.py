@@ -46,7 +46,6 @@ from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from seal3d_tpu_torch.data.provider import rand_poses
 from seal3d_tpu_torch.data.rays import (ERROR_MAP_RES, error_map_cells,
@@ -66,6 +65,7 @@ from seal3d_tpu_torch.train import checkpoint as ckpt_io
 from seal3d_tpu_torch.train.metrics import PerceptualMeter, PSNRMeter
 from seal3d_tpu_torch.train.optim import Optimizer, apply_updates
 from seal3d_tpu_torch.utils.color import srgb_to_linear
+from seal3d_tpu_torch.utils.trace import span
 
 
 @dataclass
@@ -475,9 +475,9 @@ class Trainer:
         which gives positions no gradient."""
         flat = ckpt_io.flatten_tree(params)
         leaves = {k: v.detach().requires_grad_(True) for k, v in flat}
-        with record_function("step.forward"):
+        with span("step.forward"):
             loss, aux = fn(ckpt_io.map_tree(params, lambda k, _: leaves[k]))
-        with record_function("step.backward"):
+        with span("step.backward"):
             grads = dict(zip(leaves, torch.autograd.grad(
                 loss, list(leaves.values()), allow_unused=True)))
         grads = {k: torch.zeros_like(leaves[k]) if g is None else g
@@ -493,7 +493,7 @@ class Trainer:
     @torch.no_grad()
     def _apply_grads(self, st: TrainState, grads) -> TrainState:
         """st after one optimizer update with grads, the EMA and step + 1."""
-        with record_function("step.update"):
+        with span("step.update"):
             updates, opt_state = self.optimizer.update(grads, st.opt_state)
             params = apply_updates(st.params, updates)
             d = self.cfg.ema_decay
@@ -511,7 +511,7 @@ class Trainer:
         pmesh.set_mesh(self.mesh)
         if self.mesh is not None:
             self.mesh.reset_log()
-        with record_function("step.batch"):
+        with span("step.batch"):
             rand = rand if rand is not None else self.draw_step_random()
             batch = self.sample_batch(rand)
         loss, grads, out = self.loss_and_grads(
