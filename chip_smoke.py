@@ -326,9 +326,19 @@ Phases, each of which raises (exit code != 0) when it fails:
    default copy's (span_adaptive and group_compact within 1.0 dB, the
    legacy and two-level train marches at 20 dB or more); (c) a SealTrainer under compaction flat renders a teacher
    view with no demand probe and K1 once a chunk.
+27. the NGP field head's kernel pair (`field_head_phase`, `[field head]`
+   lines): its launches on the main paths, each counted right around its
+   run (phase 14's bbox edit: one backward a pretraining batch, one
+   forward a teacher query chunk, pretraining batch, proxy chunk and test
+   chunk, none a finetune step; an 800x800 view of phase 7's state: one a
+   rendered chunk; a train step: none); forward and backward at a
+   pretraining batch's 2^19 rows against the plain composition (error and
+   share of rows with a bf16 flip, gated at 2e-2 and 2%), device times
+   beside the plain composition's and the byte bound.
 The line before the last is the kernel table as JSON (nine rows for the
 nine Pallas call sites, K1 over a level range twice, on one card and
-across ranks; hash_encode_bwd is both K2 and K3's backward; each
+across ranks; hash_encode_bwd is both K2 and K3's backward; two more for
+the field head, which replaces no Pallas kernel; each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
 computes the same function, that call's time; a row whose own time is
@@ -599,18 +609,19 @@ def main(argv=None):
         k1_fwd["launches"] += fwd
         k1_bwd["launches"] += bwd
         lap("26")
-        del ds800
         k5_rows = lookup_phase(dev, baselines["lookup.cu"])
         lap("13")
         teacher_ckpt = os.path.join(ws, "train", "checkpoints",
                                     f"ngp_step{TRAIN_STEPS:07d}.npz")
-        fwd, bwd, k4_seal, seal_case = seal_phase(
+        fwd, bwd, k4_seal, seal_case, seal_head = seal_phase(
             dev, os.path.join(ws, "seal"), teacher_ckpt)
         k1_fwd["launches"] += fwd
         k1_bwd["launches"] += bwd
         k4["launches"] += k4_seal
         lap("14")
-        del tr7
+        head_rows = field_head_phase(dev, tr7, ds800, seal_head)
+        lap("27")
+        del tr7, ds800
         torch.cuda.empty_cache()
         k1_tp = k1_levels_phase(dev, chunk)
         lap("15")
@@ -653,7 +664,8 @@ def main(argv=None):
         k1_ranks = parallel_phase(dev)
         lap("25")
     print(f"[time] wall seconds by phase: {json.dumps(seconds)}")
-    kernels = [k1_fwd, k1_bwd, k1_tp, k1_ranks, *hash_rows, k4, *k5_rows]
+    kernels = [k1_fwd, k1_bwd, k1_tp, k1_ranks, *hash_rows, k4, *k5_rows,
+               *head_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for row in kernels:
@@ -1935,10 +1947,12 @@ def lookup_bwd_measure(dev, timed, baselines) -> float:
 
 def seal_phase(dev, ws, teacher_ckpt):
     """Phase 14 -> (K1 forward launches, K1 backward launches, K4 launches)
-    of the bbox edit through the CLI and of the edited views' renders, and
-    the K1 arguments of its first pretraining batch."""
+    of the bbox edit through the CLI and of the edited views' renders, the
+    K1 arguments of its first pretraining batch, and the field head's
+    (forward, backward) launches of the edit."""
     from seal3d_tpu_torch import main_SealNeRF
     from seal3d_tpu_torch.config import common_parser, load_dataset
+    from seal3d_tpu_torch.ops.field_head import field_head_bwd, field_head_fwd
     from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_bwd
     from seal3d_tpu_torch.ops.hash_encode import hash_encode, hash_encode_bwd
     from seal3d_tpu_torch.ops.ladder import ladder_plan
@@ -1952,13 +1966,14 @@ def seal_phase(dev, ws, teacher_ckpt):
                      "--pretraining_epochs", str(epochs), "--extra_epochs",
                      str(steps), "--workspace", ws]
     for fn in (halo_encode, halo_encode_bwd, hash_encode, hash_encode_bwd,
-               ladder_plan):
+               ladder_plan, field_head_fwd, field_head_bwd):
         fn.launches = 0
     t0 = time.perf_counter()
     with capture_k1(lambda x: x.shape[0] == 2**19, first_only=True) as seen:
         st = main_SealNeRF.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
+    head = field_head_fwd.launches, field_head_bwd.launches
     check(len(seen) == 1, "no pretraining batch of 2^19 points was seen")
     seal_case = dict(seen[0], name="Seal pretraining batch (shell points)")
     fwd, bwd = halo_encode.launches, halo_encode_bwd.launches
@@ -1969,7 +1984,18 @@ def seal_phase(dev, ws, teacher_ckpt):
                                          f"at 256x256: {cli_s:.2f} s in all;")
 
     # every field call went through K1: count them
-    edit_launch_check(st, epochs, steps, fwd, bwd, "[seal]")
+    calls = edit_launch_check(st, epochs, steps, fwd, bwd, "[seal]")
+    # the field head's kernel: every field call but the grid updates'
+    # density queries and the finetune steps, which train the MLPs
+    head_calls = (calls["queries"] + calls["batches"] + calls["proxy"]
+                  + calls["test"])
+    print(f"[seal] field head launches: backward {head[1]} (one a pretrain "
+          f"batch, {calls['batches']}; none a finetune step), forward "
+          f"{head[0]} ({head_calls}: {calls['queries']} teacher queries, "
+          f"{calls['batches']} pretrain batches, {calls['proxy']} proxy "
+          f"chunks, {calls['test']} test chunks)")
+    check(head == (head_calls, calls["batches"]),
+          f"field head launches {head} != ({head_calls}, {calls['batches']})")
     check(len(st.render_stats) == 8
           and all(s_["nonfinite"] == 0 for s_ in st.render_stats),
           "edited test views: count or non-finite pixels")
@@ -2009,7 +2035,7 @@ def seal_phase(dev, ws, teacher_ckpt):
     check(d_img <= 1e-5 and d_dep <= 1e-4,
           f"edited views differ with K4: {d_img} {d_dep}")
     check(k4 > 0 and k4 == expect, f"K4 launches {k4} != {expect}")
-    return fwd, bwd, k4, seal_case
+    return fwd, bwd, k4, seal_case, head
 
 
 def edit_outputs(st, ws, epochs, head):
@@ -2038,7 +2064,8 @@ def edit_launch_check(st, epochs, steps, fwd, bwd, tag):
     query chunk (2^18 shell points), pretrain batch, finetune step,
     grid-update chunk (a full update 16 a cascade, a partial one 3; the
     hacked start and restore_grid are full), proxy chunk rendered and
-    edited test-view chunk rendered."""
+    edited test-view chunk rendered. -> the counts of teacher query chunks,
+    pretrain batches, proxy chunks and test chunks."""
     shells = {k: (int(v["weight"].sum()), v["n_batches"])
               for k, v in st.pretrain_data.items()}
     queries = sum(-(-n // 2**18) for n, _ in shells.values())
@@ -2062,6 +2089,8 @@ def edit_launch_check(st, epochs, steps, fwd, bwd, tag):
                                   f"{batches + steps}")
     check(fwd == field_calls, f"{tag} K1 fwd launches {fwd} != field calls "
                               f"{field_calls}")
+    return {"queries": queries, "batches": batches, "proxy": proxy_chunks,
+            "test": test_chunks}
 
 
 def print_edit_timer(st, timer, steps, tag):
@@ -5175,6 +5204,113 @@ def march_options_phase(dev, tr7):
     print(f"[march options] phase 26: {time.perf_counter() - t_phase:.1f} s "
           f"(budget 45)")
     return fwd_all + tfwd + pfwd, bwd_all
+
+
+FIELD_HEAD_ROWS = 2**19     # a Seal-3D pretraining batch
+
+
+def field_head_phase(dev, tr7, ds800, seal_head):
+    """Phase 27: the field head's kernel pair (ops/field_head.py). Its
+    launches where the main paths run it: one 800x800 view of phase 7's
+    state (one forward a rendered chunk) and one train step of that state
+    (none: the step trains the MLPs), beside the bbox edit's `seal_head`
+    (forward, backward) from phase 14. Then at a pretraining batch's 2^19
+    rows and the published widths, on features in +-1 and unit directions:
+    forward and backward against the plain composition (errors over the
+    largest value, and the share of rows off by more than 8 fp32 ulps of
+    it: the bf16 flips), device times beside the plain composition's and
+    the byte bound. -> its two kernel rows."""
+    from seal3d_tpu_torch.config import (build_options, build_train_config,
+                                         common_parser)
+    from seal3d_tpu_torch.models import ngp
+    from seal3d_tpu_torch.models.mlp import mlp_init
+    from seal3d_tpu_torch.ops import field_head as fh
+    from seal3d_tpu_torch.train.trainer import Trainer
+
+    counters = (fh.field_head_fwd, fh.field_head_bwd)
+    cli = common_parser("chip_smoke").parse_args(O_ARGV)
+    viewer = Trainer(ngp, tr7.fcfg, build_options(cli),
+                     build_train_config(cli), dataset=ds800, device=dev)
+    viewer.state = tr7.state
+    for fn in counters:
+        fn.launches = 0
+    viewer.render_image(ds800.poses[0], ds800.h, ds800.w)
+    view = tuple(fn.launches for fn in counters)
+    chunks = viewer.render_stats[-1]["chunks_rendered"]
+    for fn in counters:
+        fn.launches = 0
+    tr7.train_step()
+    step = tuple(fn.launches for fn in counters)
+    print(f"[field head] launches (forward, backward): an 800x800 view "
+          f"{view} ({chunks} chunks rendered), a train step {step}, the "
+          f"bbox edit {seal_head}")
+    check(view == (chunks, 0) and step == (0, 0),
+          f"field head launches: view {view} of {chunks} chunks, train step "
+          f"{step}")
+
+    m = FIELD_HEAD_ROWS
+    gen = torch.Generator().manual_seed(27)
+    nets = [[{"w": l["w"].to(dev)} for l in mlp_init(dims, generator=gen)]
+            for dims in ([32, 64, 16], [63, 64, 64, 3])]
+    ws = [l["w"] for net in nets for l in net]
+    g = torch.Generator(device=dev).manual_seed(27)
+    enc = torch.rand((m, 16, 4), generator=g, device=dev) * 2 - 1
+    d = torch.nn.functional.normalize(
+        torch.randn((m, 3), generator=g, device=dev), dim=-1)
+    gs = torch.randn((m,), generator=g, device=dev)
+    gr = torch.randn((m, 3), generator=g, device=dev)
+
+    def off(got, want):
+        scale = float(want.abs().max())
+        err = (got - want).abs().reshape(m, -1).amax(1) / scale
+        return float(err.max()), float((err > 8 * 2.0**-23).float().mean())
+
+    with torch.no_grad():
+        sigma, rgb = fh.field_head_fwd(enc, d, ws)
+        ps, pr = fh.field_head_plain(enc, d, *nets, 4)
+        g_enc = fh.field_head_bwd(enc, d, ws, gs, gr)
+    x = enc.clone().requires_grad_(True)
+    ps2, pr2 = fh.field_head_plain(x, d, *nets, 4)
+    (pg,) = torch.autograd.grad([ps2, pr2], [x], [gs, gr], retain_graph=True)
+    errs = {"sigma": off(sigma, ps), "rgb": off(rgb, pr),
+            "enc cotangent": off(g_enc, pg)}
+    k_fwd = time_device_ms(lambda: fh.field_head_fwd(enc, d, ws))
+    k_bwd = time_device_ms(lambda: fh.field_head_bwd(enc, d, ws, gs, gr))
+    with torch.no_grad():
+        p_fwd = busy_ms(lambda: fh.field_head_plain(enc, d, *nets, 4))
+    p_bwd = busy_ms(lambda: torch.autograd.grad([ps2, pr2], [x], [gs, gr],
+                                                retain_graph=True))
+    n_fwd = count_launches(lambda: fh.field_head_plain(x, d, *nets, 4))
+    n_bwd = count_launches(lambda: torch.autograd.grad(
+        [ps2, pr2], [x], [gs, gr], retain_graph=True))
+    # bytes: features and directions in, sigma and rgb out; the backward
+    # reads them again with both cotangents and writes the features'
+    # cotangent. Operations: the fp32 output-layer backwards (K = 16 and
+    # K = 3, 2 per multiply-add); the bf16 products at the tensor cores'
+    # peak take about a quarter of the byte bound
+    fwd_bound = bound(m * (256 + 12 + 4 + 12), 0)
+    bwd_bound = bound(m * (256 + 12 + 4 + 12 + 256), m * 64 * 19 * 2)
+    print(f"[field head] {m} rows: forward {k_fwd:.4f} ms (bound "
+          f"{fwd_bound['bound_ms']:.4f}, plain {p_fwd:.4f} in {n_fwd} "
+          f"launches), backward {k_bwd:.4f} ms (bound "
+          f"{bwd_bound['bound_ms']:.4f}, plain {p_bwd:.4f} in {n_bwd} "
+          f"launches); max error / share of rows off by > 8 ulps: "
+          + ", ".join(f"{k} {e:.3e} / {s:.5f}" for k, (e, s) in errs.items()))
+    for k, (e, s) in errs.items():
+        check(e <= 2e-2 and s <= 0.02, f"field head {k}: error {e:.3e}, "
+                                       f"{s:.5f} of the rows off")
+    common = {"route": "CUDA C++, nvcc + ctypes",
+              "source": "seal3d_tpu_torch/csrc/field_head.cu",
+              "replaces": "none (XLA fuses the chain on the TPU; upstream "
+                          "analogue ffmlp)",
+              "library_ms": None}
+    return [dict(common, name="field_head fwd",
+                 launches=seal_head[0] + view[0],
+                 max_abs_err=max(errs["sigma"][0], errs["rgb"][0]),
+                 ms=k_fwd, plain_ms=p_fwd, **fwd_bound),
+            dict(common, name="field_head bwd", launches=seal_head[1],
+                 max_abs_err=errs["enc cotangent"][0], ms=k_bwd,
+                 plain_ms=p_bwd, **bwd_bound)]
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from seal3d_tpu_torch.models.mlp import mlp_apply, mlp_init
+from seal3d_tpu_torch.ops.field_head import field_head
 from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig, hashgrid_encode,
                                            hashgrid_encode_stacked,
                                            hashgrid_init)
@@ -120,16 +121,14 @@ def apply(params, cfg: NGPConfig, x: torch.Tensor, d: torch.Tensor,
           valid: Optional[torch.Tensor] = None):
     """(sigma [M], rgb [M, 3]). The sigma and color grids share every corner,
     so one stacked F=4 encode serves both; `valid` zeroes the features of
-    packed-tail rows on the halo backend."""
-    feat, c_enc = hashgrid_encode_stacked(
+    packed-tail rows on the halo backend. The MLPs, SH and activations
+    after it are the field head (ops/field_head.py: a kernel pair where
+    the MLPs are frozen, the plain composition where they train)."""
+    enc = hashgrid_encode_stacked(
         (params["encoder"], params["encoder_color"]),
         _normalize(x, cfg.bound), cfg.grid, valid=valid)
-    h = mlp_apply(params["sigma_net"], feat)
-    sigma = trunc_exp(h[..., 0])
-    d_enc = sh_encode(d, cfg.sh_degree)
-    hc = torch.cat([d_enc, h[..., 1:], c_enc], dim=-1)
-    rgb = torch.sigmoid(mlp_apply(params["color_net"], hc))
-    return sigma, rgb
+    return field_head(enc, d, params["sigma_net"], params["color_net"],
+                      cfg.sh_degree)
 
 
 def param_lr_scales(params, encoder_scale: float = 1.0,

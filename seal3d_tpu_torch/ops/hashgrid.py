@@ -361,14 +361,20 @@ def hashgrid_encode_stacked(tables: Sequence[torch.Tensor], x: torch.Tensor,
                             valid: Optional[torch.Tensor] = None):
     """Encode through several same-config tables with one widened gather
     (NGP's sigma + color grids share every corner index and weight).
-    Returns one [..., L*F_i] tensor per table."""
-    widths = [t.shape[-1] for t in tables]
+    Returns [..., L, sum F_i]: level l holds table 0's features, then table
+    1's, and so on (`split_stacked` cuts it into one tensor per table)."""
     out = hashgrid_encode(torch.cat(list(tables), dim=-1), x, cfg, valid=valid)
-    out = out.reshape(*out.shape[:-1], cfg.num_levels, sum(widths))
+    return out.reshape(*out.shape[:-1], cfg.num_levels,
+                       sum(t.shape[-1] for t in tables))
+
+
+def split_stacked(out: torch.Tensor, widths: Sequence[int]):
+    """[..., L, sum F_i] of `hashgrid_encode_stacked` -> one [..., L*F_i]
+    tensor per table."""
     parts, start = [], 0
     for f in widths:
         part = out[..., start:start + f]
-        parts.append(part.reshape(*part.shape[:-2], cfg.num_levels * f))
+        parts.append(part.reshape(*part.shape[:-2], part.shape[-2] * f))
         start += f
     return parts
 
