@@ -211,8 +211,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    per step by segment from CUDA events, with the factor shapes after each
    milestone and the shrunk aabb; launches and device-busy ms of a step at
    300^3 and the device ms of its plane / line lookups (the
-   `tensorf.sample` ranges forward; the scatters of their gathers,
-   `IndexSelectBackward0`, backward) and their share of the step; val PSNR
+   `tensorf.sample` ranges forward, the `tensorf.scatter` ranges of their
+   backward) and their share of the step; val PSNR
    on 4 views at 256x256 (>= 20 dB); the final shapes equal
    n_to_reso(300^3, shrunk aabb); s per 800x800 view on 2 test views and
    the peak MiB above what is held while one renders; a fresh
@@ -2665,13 +2665,13 @@ def tensorf_phase(dev, ws):
             continue
         if e.key == "tensorf.sample":
             fwd_ms += e.device_time_total / 1e3 / prof["n"]
-        elif e.key.endswith("evaluate_function: IndexSelectBackward0"):
+        elif e.key == "tensorf.scatter":
             bwd_ms += e.device_time_total / 1e3 / prof["n"]
     share = (fwd_ms + bwd_ms) / max(prof["busy_ms"], 1e-9)
     print(f"[tensorf] one step at {final}: {prof['launches']:.0f} launches, "
           f"device busy {prof['busy_ms']:.3f} ms; lookups: forward "
-          f"(tensorf.sample) {fwd_ms:.3f} ms, backward (the gathers' "
-          f"scatters) {bwd_ms:.3f} ms of device time, {share:.3f} of the "
+          f"(tensorf.sample) {fwd_ms:.3f} ms, backward (tensorf.scatter) "
+          f"{bwd_ms:.3f} ms of device time, {share:.3f} of the "
           f"busy time")
     check(fwd_ms > 0 and bwd_ms > 0, "the profiler saw no lookup on the card")
     del fresh, test800, imgs, again
