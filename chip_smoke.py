@@ -202,10 +202,10 @@ Phases, each of which raises (exit code != 0) when it fails:
    and on (a)'s student: K1 launched once per 2^16-point chunk, vertices
    inside the bound, the lifted stroke in the edited mesh alone. K1's
    launch counts equal the field calls of every edit.
-21. TensoRF and Seal on it (it runs after phase 20; no kernel of the
-   table lies on this path, and none is launched): (a) `python -m
-   seal3d_tpu_torch.main_tensoRF synthetic -O --bound 1.0 --dt_gamma 0
-   --min_near 0.05 --max_steps 512 --iters 1200 --H 256 --W 256
+21. TensoRF and Seal on it (it runs after phase 20; of the table's kernels
+   only the VM lookups' pair runs here, and in (a) and (c) it must): (a)
+   `python -m seal3d_tpu_torch.main_tensoRF synthetic -O --bound 1.0
+   --dt_gamma 0 --min_near 0.05 --max_steps 512 --iters 1200 --H 256 --W 256
    --upsample_model_steps 250 450 650 850 1100` (VM at the CLI's full
    width, 128^3 -> 300^3 over five upsamples, the shrink at step 1000): ms
    per step by segment from CUDA events, with the factor shapes after each
@@ -223,7 +223,14 @@ Phases, each of which raises (exit code != 0) when it fails:
    seal3d_tpu_torch.main_SealTensoRF` with seal_config_bbox on (a)'s
    `.npz` at 15 epochs and 200 steps, 256x256: the stages
    of timer.json, the student against the mapped teacher on 4 val views
-   (>= 25 dB), the pixels the edit changes (> 0), the student's aabb drift.
+   (>= 25 dB), the pixels the edit changes (> 0), the student's aabb drift;
+   (d) the VM lookups' kernel pair (`tensorf_vm_rows`, `[tensorf vm]`
+   lines) on the first 2^19 rows of (c)'s packed shells at the student's
+   factors: both calls of a pretraining batch (density, colour) forward
+   and backward against the plain composition and its Functions, device
+   times beside theirs, the byte bound and `index_select` / `index_add_`
+   of the same corner rows, and the share of corner rows the backward
+   sent as atomics.
 22. the rest of main_nerf (it runs right after phase 7): (a) a Blender
    tree at nerf_synthetic's layout, written by the port's own code:
    SyntheticScene renders of 100 train, 4 val and 2 test views at 800x800
@@ -338,7 +345,8 @@ Phases, each of which raises (exit code != 0) when it fails:
 The line before the last is the kernel table as JSON (nine rows for the
 nine Pallas call sites, K1 over a level range twice, on one card and
 across ranks; hash_encode_bwd is both K2 and K3's backward; two more for
-the field head, which replaces no Pallas kernel; each
+the field head and two for the TensoRF VM lookups, which replace no
+Pallas kernel; each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
 computes the same function, that call's time; a row whose own time is
@@ -641,7 +649,7 @@ def main(argv=None):
         k1_fwd["max_abs_err"] = max(k1_fwd["max_abs_err"], err)
         lap("20")
         torch.cuda.empty_cache()
-        tensorf_phase(dev, os.path.join(ws, "tensorf"))
+        vm_rows = tensorf_phase(dev, os.path.join(ws, "tensorf"))
         lap("21")
         torch.cuda.empty_cache()
         fwd, bwd, fwd_h, bwd_h, err, dn_tr = families_phase(
@@ -665,7 +673,7 @@ def main(argv=None):
         lap("25")
     print(f"[time] wall seconds by phase: {json.dumps(seconds)}")
     kernels = [k1_fwd, k1_bwd, k1_tp, k1_ranks, *hash_rows, k4, *k5_rows,
-               *head_rows]
+               *head_rows, *vm_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for row in kernels:
@@ -2555,7 +2563,7 @@ CP_STEPS, CP_UPSAMPLE, MIN_CP_GAIN_DB = 300, 150, 2.0   # phase 21b
 def kernel_counters():
     """Every kernel wrapper of the table, by name (their launch counts)."""
     from seal3d_tpu_torch.ops import (halo_encode, hash_encode, ladder,
-                                      lookup)
+                                      lookup, tensorf_vm)
 
     return {"halo_encode": halo_encode.halo_encode,
             "halo_encode_bwd": halo_encode.halo_encode_bwd,
@@ -2564,13 +2572,16 @@ def kernel_counters():
             "hash_encode_bwd": hash_encode.hash_encode_bwd,
             "ladder_plan": ladder.ladder_plan,
             "multilevel_lookup": lookup.multilevel_lookup,
-            "multilevel_lookup_bwd": lookup.multilevel_lookup_bwd}
+            "multilevel_lookup_bwd": lookup.multilevel_lookup_bwd,
+            "vm_features": tensorf_vm.vm_features,
+            "vm_features_bwd": tensorf_vm.vm_features_bwd}
 
 
 def tensorf_phase(dev, ws):
     """Phase 21: (a) TensoRF VM through main_tensoRF at full width, (b) CP
-    at 128x128, (c) main_SealTensoRF on (a)'s teacher. No kernel of the
-    table is launched on this path."""
+    at 128x128, (c) main_SealTensoRF on (a)'s teacher, (d) the VM lookups'
+    kernel pair on a batch of (c). Of the table's kernels only that pair
+    runs, in (a) and (c). -> its two kernel rows."""
     from seal3d_tpu_torch import main_SealTensoRF, main_tensoRF
     from seal3d_tpu_torch.config import common_parser, load_dataset
     from seal3d_tpu_torch.models import tensorf
@@ -2616,6 +2627,10 @@ def tensorf_phase(dev, ws):
     print(f"[tensorf] val PSNR {psnr_a:.2f} dB over 4 views at 256x256")
     check(psnr_a >= MIN_TF_PSNR, f"TensoRF val PSNR {psnr_a:.2f} < "
                                  f"{MIN_TF_PSNR}")
+    vm_a = tuple(read_counters(counters)[k]
+                 for k in ("vm_features", "vm_features_bwd"))
+    print(f"[tensorf] VM lookups' kernel launches in (a) (forward, "
+          f"backward): {vm_a}")
 
     cli800 = common_parser("chip_smoke").parse_args(
         O_ARGV + ["--H", "800", "--W", "800", "--workspace", ws_a])
@@ -2767,7 +2782,154 @@ def tensorf_phase(dev, ws):
 
     launched = read_counters(counters)
     print(f"[tensorf] kernel launches over phase 21: {launched}")
-    check(not any(launched.values()), "a kernel ran on the TensoRF path")
+    vm = {k: launched.pop(k) for k in ("vm_features", "vm_features_bwd")}
+    check(vm_a[0] > 0 and vm_a[1] > 0 and all(
+        v > u for v, u in zip(vm.values(), vm_a)),
+        f"the VM lookups' kernels did not run in (a) and (c): (a) {vm_a}, "
+        f"phase 21 {vm}")
+    check(not any(launched.values()), "another kernel ran on the TensoRF "
+                                      "path")
+    return tensorf_vm_rows(dev, st, tuple(vm.values()))
+
+
+VM_ROWS = 2**19     # phase 21d: a Seal-3D pretraining batch
+
+
+def tensorf_vm_rows(dev, st, launches):
+    """Phase 21d: the VM lookups' kernel pair (ops/tensorf_vm.py) on the
+    first VM_ROWS rows of phase 21c's packed shells (grid order, with the
+    weight-0 padding rows of the shells that end before, whose cotangents
+    are zero) at the student's factors: the two calls of a pretraining
+    batch (density, colour) forward
+    and backward against the plain composition, device times beside the
+    plain path's and one PyTorch call a corner of the same gathers
+    (`index_select`) and scatters (`index_add_`), the byte bound, and the
+    share of corner rows the backward sent as atomics. `launches`: the
+    pair's (forward, backward) launches over phase 21's main paths. -> the
+    two kernel rows."""
+    from seal3d_tpu_torch.models import tensorf
+    from seal3d_tpu_torch.ops import tensorf_vm as vm
+
+    params = st.state.params
+    shells = st.pretrain_data.values()
+    pts = torch.cat([v["points"].reshape(-1, 3) for v in shells])[:VM_ROWS]
+    wgt = torch.cat([v["weight"].reshape(-1) for v in shells])[:VM_ROWS]
+    xn = tensorf._normalize(params, pts).contiguous()
+    n = xn.shape[0]
+    calls = [(params[f"{nm}_mat"], params[f"{nm}_vec"], nm == "sigma")
+             for nm in ("sigma", "color")]
+    # random cotangents, zero on the padding rows as the weighted loss's
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cts = [torch.randn((n, 1 if red else sum(m.shape[0] for m in mats)),
+                       generator=gen, device=dev) * wgt[:, None]
+           for mats, _, red in calls]
+    cts = [ct[:, 0].contiguous() if red else ct
+           for ct, (_, _, red) in zip(cts, calls)]
+    rows = [[vm._cell_rows(f) for f in mats + vecs]
+            for mats, vecs, _ in calls]
+    shapes = [[(m.shape[0], m.shape[1], m.shape[2], v.shape[1])
+               for m, v in zip(mats, vecs)] for mats, vecs, _ in calls]
+
+    def fwd(fn):
+        return [fn(mats, vecs, xn, True, red) for mats, vecs, red in calls]
+
+    def bwd():
+        return [vm.vm_features_bwd(r, sh, xn, ct, True, red, False)[0]
+                for r, sh, ct, (_, _, red) in zip(rows, shapes, cts, calls)]
+
+    leaves = [[t.detach().clone().requires_grad_(True) for t in m + v]
+              for m, v, _ in calls]
+    outs = [vm.vm_features_plain(lv[:3], lv[3:], xn, True, red)
+            for lv, (_, _, red) in zip(leaves, calls)]
+    p_cts = [ct if red else ct.T for ct, (_, _, red) in zip(cts, calls)]
+
+    def plain_bwd():
+        return [torch.autograd.grad(o, lv, ct, retain_graph=True)
+                for o, lv, ct in zip(outs, leaves, p_cts)]
+
+    comps = vm._comps_counter(xn.device)
+    with torch.no_grad():
+        got, want = fwd(vm.vm_features), fwd(vm.vm_features_plain)
+        c0 = int(comps)
+        g_got = bwd()
+        torch.cuda.synchronize()
+        sent = int(comps) - c0
+    g_want = plain_bwd()
+    err_f = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    err_b = max(float((a - b).abs().max()) for gs, ws in zip(g_got, g_want)
+                for a, b in zip(gs, ws))
+    scale_f = max(float(b.abs().max()) for b in want)
+    scale_b = max(float(b.abs().max()) for ws in g_want for b in ws)
+    k_fwd = time_device_ms(lambda: fwd(vm.vm_features))
+    k_bwd = time_device_ms(bwd)
+    with torch.no_grad():
+        p_fwd = busy_ms(lambda: fwd(vm.vm_features_plain))
+    p_bwd = busy_ms(plain_bwd)
+
+    # the same corner rows through one PyTorch call each: the gathers from
+    # the [R, cells] factors, the scatters of [N, R] rows into [cells, R]
+    corners = []
+    for mats, vecs, _ in calls:
+        for i in range(3):
+            a, b = tensorf.MAT_IDS[i]
+            r, h, w = mats[i].shape
+            _, i00, _, _ = tensorf._plane_corners(xn[:, a], xn[:, b], h, w,
+                                                  True)
+            _, x0, _ = tensorf._line_corners(xn[:, tensorf.VEC_IDS[i]],
+                                             vecs[i].shape[1], True)
+            for f, idx in ((mats[i].reshape(r, -1), i00),
+                           (mats[i].reshape(r, -1), i00 + 1),
+                           (mats[i].reshape(r, -1), i00 + w),
+                           (mats[i].reshape(r, -1), i00 + w + 1),
+                           (vecs[i], x0), (vecs[i], x0 + 1)):
+                corners.append((f.detach(), idx,
+                                torch.randn((n, r), generator=gen,
+                                            device=dev)))
+    with torch.no_grad():
+        lib_fwd = busy_ms(lambda: [f.index_select(1, idx)
+                                   for f, idx, _ in corners])
+        lib_bwd = busy_ms(lambda: [
+            torch.zeros((f.shape[1], f.shape[0]), device=dev).index_add_(
+                0, idx, g) for f, idx, g in corners])
+
+    # bytes: xn once a call, every factor once, the features out; the
+    # backward reads xn and the cotangents and writes every factor's
+    # cotangent (the gathers it repeats, the scratch and the transposes
+    # are the design's). Operations: per rank and point, the plane's blend
+    # (11), the line's (3), the product (1) and the sum or store (1);
+    # backward twice that
+    n_feat = sum(m.shape[0] for m in calls[1][0])
+    n_params = sum(t.numel() for mats, vecs, _ in calls for t in mats + vecs)
+    ranks = sum(m.shape[0] for mats, _, _ in calls for m in mats)
+    fwd_bound = bound(2 * 12 * n + 4 * n_params + 4 * n * (1 + n_feat),
+                      16 * ranks * n)
+    bwd_bound = bound(2 * 12 * n + 4 * n * (1 + n_feat) + 8 * n_params,
+                      32 * ranks * n)
+    whole = 6 * n * ranks       # 4 corner rows a plane, 2 a line
+    print(f"[tensorf vm] {n} shell rows (phase 21c's, grid order) at "
+          f"{[tuple(m.shape) for m in calls[1][0]]}: forward {k_fwd:.4f} ms "
+          f"(bound {fwd_bound['bound_ms']:.4f}, plain {p_fwd:.4f}, "
+          f"index_select {lib_fwd:.4f}), backward {k_bwd:.4f} ms (bound "
+          f"{bwd_bound['bound_ms']:.4f}, plain {p_bwd:.4f}, index_add_ "
+          f"{lib_bwd:.4f}); max error forward {err_f:.3e} of {scale_f:.3e}, "
+          f"factors' cotangents {err_b:.3e} of {scale_b:.3e}; atomics sent "
+          f"{sent} of {whole} corner-row components "
+          f"({100 * sent / whole:.2f}%); launches over phase 21 (forward, "
+          f"backward) {launches}")
+    check(err_f <= 1e-5 * scale_f and err_b <= 1e-5 * scale_b,
+          f"VM kernel against the plain path: {err_f} of {scale_f}, {err_b} "
+          f"of {scale_b}")
+    check(0 < sent < whole, f"VM backward atomics: {sent} of {whole}")
+    common = {"route": "CUDA C++, nvcc + ctypes",
+              "source": "seal3d_tpu_torch/csrc/tensorf_vm.cu",
+              "replaces": "none (XLA runs the JAX package's gathers and "
+                          "blends on the TPU)"}
+    return [dict(common, name="tensorf VM fwd", launches=launches[0],
+                 max_abs_err=err_f, ms=k_fwd, plain_ms=p_fwd,
+                 library_ms=lib_fwd, **fwd_bound),
+            dict(common, name="tensorf VM bwd", launches=launches[1],
+                 max_abs_err=err_b, ms=k_bwd, plain_ms=p_bwd,
+                 library_ms=lib_bwd, **bwd_bound)]
 
 
 # phase 23: the D-NeRF, CCNeRF and SDF CLIs at their families' full widths

@@ -14,7 +14,12 @@ encoding and a 3x128 MLP. The factor lookups (`sample_plane`,
 `sample_line`) are the reference's explicit bilinear / linear formula over
 four / two gathers, zero outside [-1, 1] (not `F.grid_sample`), each one
 autograd Function whose backward scatters the factor's cotangent with
-`index_add_` from the saved corner indices and weights. They run under
+`index_add_` from the saved corner indices and weights. The VM pairs go
+through `ops/tensorf_vm.py`'s `vm_features`: on CUDA tensors a hand-written
+kernel pair that gathers, blends and multiplies each plane x line product
+in one pass and scatters its cotangents with run-merged 16-byte atomics;
+on CPU tensors the composition of those Functions. CP, CCNeRF and the
+background net call the Functions. Both paths run under
 `span("tensorf.sample")`, their backwards under `span("tensorf.scatter")`,
 and the module's host counters (`lookup_rows`, `scatter_rows`, ...) count
 their work as calls are issued. The resolution surgeries
@@ -35,6 +40,7 @@ import torch.nn.functional as F
 from seal3d_tpu_torch.models.mlp import mlp_apply, mlp_init
 from seal3d_tpu_torch.ops.freq import freq_encode, freq_encode_dim
 from seal3d_tpu_torch.ops.morton import morton3d_invert
+from seal3d_tpu_torch.ops.tensorf_vm import vm_features
 from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
 from seal3d_tpu_torch.utils.trace import span
 
@@ -53,6 +59,11 @@ lookup_rows = {"plane": 0, "line": 0}
 lookup_points = {"plane": 0, "line": 0}
 scatter_rows = {"plane": 0, "line": 0}
 scatter_points = {"plane": 0, "line": 0}
+# the components the VM kernel's backward sent to the L2 by atomics (its
+# run merge sends fewer than the 4 a plane row and 2 a line row that
+# `scatter_rows` counts), by device: an int64 device tensor made on first
+# use, added to on the device (read it after a sync)
+scatter_atomic_comps = {}
 
 
 @dataclass(frozen=True)
@@ -311,31 +322,19 @@ def _cp_product(vecs, xn):
             * sample_line(vecs[2], xn[:, VEC_IDS[2]]))
 
 
-def _vm_parts(mats, vecs, xn):
-    """The three plane x line products, each [R_i, N]."""
-    parts = []
-    for i in range(3):
-        m0, m1 = MAT_IDS[i]
-        parts.append(sample_plane(mats[i], xn[:, m0], xn[:, m1])
-                     * sample_line(vecs[i], xn[:, VEC_IDS[i]]))
-    return parts
-
-
 def _sigma_feat(params, cfg, xn):
     if cfg.decomposition == "cp":
         return _cp_product(params["sigma_vec"], xn).sum(0)
-    feat = 0.0
-    for part in _vm_parts(params["sigma_mat"], params["sigma_vec"], xn):
-        feat = feat + part.sum(0)
-    return feat
+    return vm_features(params["sigma_mat"], params["sigma_vec"], xn,
+                       reduce=True)
 
 
 def _color_feat(params, cfg, xn):
     if cfg.decomposition == "cp":
         feats = _cp_product(params["color_vec"], xn)                # [R, N]
     else:
-        feats = torch.cat(_vm_parts(params["color_mat"], params["color_vec"],
-                                    xn), dim=0)                     # [3R, N]
+        feats = vm_features(params["color_mat"], params["color_vec"], xn,
+                            reduce=False)                           # [3R, N]
     return feats.T @ params["basis_mat"][0]["w"]
 
 

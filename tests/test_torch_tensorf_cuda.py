@@ -2,8 +2,10 @@
 CPU: `apply` (VM, CP, with the background net) at a full-width config on
 2^16 seeded points, and the loss and gradient of one train step of
 `TensoRFTrainer` on the same rays, jitter and occupancy, then one whole step
-on the card. The field has no hand kernel: its lookups are PyTorch's
-gathers and scatters on both devices.
+on the card. On the card the VM pairs' lookups run through their kernel
+pair (ops/tensorf_vm.py; held against the plain path in
+tests/test_torch_tensorf_vm.py), on the CPU through the plain Functions;
+CP and the background net take the Functions on both devices.
 
 Imports torch and the port only (no JAX), so it also runs on a GPU machine
 without JAX: python -m pytest --noconftest -m cuda
