@@ -360,6 +360,8 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import functools
+import glob
 import json
 import os
 import subprocess
@@ -1638,11 +1640,11 @@ def ladder_phase(dev, tr7, ds, ws, baselines):
             err = max(err, *(float((a_.float() - b_.float()).abs().max())
                              for a_, b_ in zip(out, ref)))
             for src, name in zip(baselines, names[1:]):
-                with other_library(k4, src):
+                with other_library(src):
                     other = ladder_plan(r_o, r_d, *tabs, aabb, **kw_)
                 check(all(torch.equal(a_, b_) for a_, b_ in zip(other, out)),
                       f"K4 of {name} differs from the tree's on {tag}")
-            dev_ms = in_turns(k4, baselines, lambda: time_device_ms(
+            dev_ms = in_turns(baselines, lambda: time_device_ms(
                 lambda: ladder_plan(r_o, r_d, *tabs, aabb, **kw_)))
         n_hit = int((out[0] < 1e9).sum())
         print(f"[k4 cases] {tag}: {n_hit} of {r_o.shape[0]} rays hit the box, "
@@ -1667,7 +1669,7 @@ def ladder_phase(dev, tr7, ds, ws, baselines):
     rd_c = torch.where(ok, rays["rays_d"][selt],
                        torch.tensor([1.0, 0.0, 0.0], device=dev))
     with torch.no_grad():
-        view_ms = in_turns(k4, baselines, lambda: time_device_ms(
+        view_ms = in_turns(baselines, lambda: time_device_ms(
             lambda: [ladder_plan(ro_c[i], rd_c[i], *tables, aabb, **kw)
                      for i in range(len(sel))], 5))
     host = k4_host_us(dev)
@@ -1897,16 +1899,17 @@ def lookup_bwd_measure(dev, timed, baselines) -> float:
         f, t_rows = g.shape[-1], n_rows // levels
         gtab = torch.zeros((n_rows, f), device=dev)
         ops = {"wrapper": lambda: multilevel_lookup_bwd(g, idx, n_rows),
-               "kernel": lambda: k5._run("multilevel_lookup_bwd", g, idx,
-                                         gtab, t_rows, f)}
+               "kernel": lambda: k5._run(k5._BWD, g, idx, gtab, t_rows, f,
+                                         multilevel_lookup_bwd)}
         for l in range(levels):
             ops[f"L{l}"] = (lambda l=l: k5._run(
-                "multilevel_lookup_bwd", g[l:l + 1], idx[l:l + 1],
-                gtab[l * t_rows:(l + 1) * t_rows], t_rows, f))
+                k5._BWD, g[l:l + 1], idx[l:l + 1],
+                gtab[l * t_rows:(l + 1) * t_rows], t_rows, f,
+                multilevel_lookup_bwd))
         with torch.no_grad():
             ref = multilevel_lookup_bwd(g, idx, n_rows)
             for src, name in zip(baselines, names[1:]):
-                with other_library(k5, src):
+                with other_library(src):
                     d = float((multilevel_lookup_bwd(g, idx, n_rows)
                                - ref).abs().max())
                 check(d <= 2 * BWD_RTOL * case["scale"],
@@ -1916,7 +1919,7 @@ def lookup_bwd_measure(dev, timed, baselines) -> float:
             times = {name: {} for name in names}
             for op, fn in ops.items():
                 for name, pair in in_turns(
-                        k5, baselines,
+                        baselines,
                         lambda fn=fn: time_device_ms(fn)).items():
                     times[name][op] = sum(pair) / 2
             zero_ms = time_device_ms(
@@ -1929,8 +1932,8 @@ def lookup_bwd_measure(dev, timed, baselines) -> float:
                                     generator=torch.Generator(device=dev)
                                     .manual_seed(13))
                 rates[f] = atomic_sectors(uni, t_rows, f) / (time_device_ms(
-                    lambda: k5._run("multilevel_lookup_bwd", g, uni, gtab,
-                                    t_rows, f)) * 1e-3)
+                    lambda: k5._run(k5._BWD, g, uni, gtab, t_rows, f,
+                                    multilevel_lookup_bwd)) * 1e-3)
                 del uni
             rate = rates[f]
             pairs = int(((idx >= 0) & (idx < t_rows)).sum())
@@ -2871,12 +2874,11 @@ def tensorf_vm_rows(dev, st, launches):
     corners = []
     for mats, vecs, _ in calls:
         for i in range(3):
-            a, b = tensorf.MAT_IDS[i]
+            a, b = vm.MAT_IDS[i]
             r, h, w = mats[i].shape
-            _, i00, _, _ = tensorf._plane_corners(xn[:, a], xn[:, b], h, w,
-                                                  True)
-            _, x0, _ = tensorf._line_corners(xn[:, tensorf.VEC_IDS[i]],
-                                             vecs[i].shape[1], True)
+            _, i00, _, _ = vm._plane_corners(xn[:, a], xn[:, b], h, w, True)
+            _, x0, _ = vm._line_corners(xn[:, vm.VEC_IDS[i]],
+                                        vecs[i].shape[1], True)
             for f, idx in ((mats[i].reshape(r, -1), i00),
                            (mats[i].reshape(r, -1), i00 + 1),
                            (mats[i].reshape(r, -1), i00 + w),
@@ -3285,35 +3287,43 @@ def capture_k1(want=lambda x: True, first_only=False):
 
 
 @contextlib.contextmanager
-def other_library(ops_module, source):
-    """Route the wrappers of `ops_module` (ops.halo_encode, ops.hash_encode,
-    ops.ladder or ops.lookup) to a build of another version of its CUDA
-    source (`source`; None: the tree's) while the block runs. A version from before
-    a trailing argument was added (K1's row stride) ignores it, which suits
-    every timed case: packed rows."""
-    from seal3d_tpu_torch.runtime.build import build_library
+def other_library(source):
+    """Launch the kernels from a build of the tree's CUDA sources with
+    `source`, another version of one of them known by its file name, in
+    its place while the block runs (None: the tree's build). A version from
+    before a trailing argument was added (K1's row stride) ignores it,
+    which suits every timed case: packed rows."""
+    from seal3d_tpu_torch.runtime.kernels import library
 
     if source is None:
         yield
         return
-    lib = ctypes.CDLL(build_library([source]).path)
-    tree = ops_module._entry
-    ops_module._entry = lambda name: ops_module.bind_entry(lib, name)
-    try:
+    with library(other_build(source)):
         yield
-    finally:
-        ops_module._entry = tree
 
 
-def in_turns(ops_module, baselines, fn):
-    """fn() under each version of `ops_module`'s kernels, the tree's and
-    then every baseline, and once more in reverse order -> {display name:
+@functools.cache
+def other_build(source):
+    from seal3d_tpu_torch.runtime.build import CSRC_DIR, build_library
+
+    name = os.path.basename(source)
+    sources = [source if os.path.basename(s) == name else s
+               for s in glob.glob(os.path.join(CSRC_DIR, "*.cu"))]
+    built = build_library(sources)
+    print(f"[baseline build] {name}: {built.seconds:.1f} s for the "
+          f"{len(sources)} csrc/*.cu files (0.0: an identical build existed)")
+    return ctypes.CDLL(built.path)
+
+
+def in_turns(baselines, fn):
+    """fn() under each version of a kernel source, the tree's and then
+    every baseline, and once more in reverse order -> {display name:
     [first result, second result]}."""
     names = baseline_names(baselines)
     out = {name: [] for name in names}
     order = list(zip([None, *baselines], names))
     for src, name in order + order[::-1]:
-        with other_library(ops_module, src):
+        with other_library(src):
             out[name].append(fn())
     return out
 
@@ -3485,7 +3495,7 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
                 check(err_b <= BWD_RTOL * scale,
                       f"K1 bwd on {case['name']}: {err_b} of {scale}")
             for src, name in zip(variants[1:], names[1:]):
-                with other_library(k1, src):
+                with other_library(src):
                     check(torch.equal(halo_encode(t, x, v, cfg), ref_f),
                           f"K1 fwd of {name} is not bit-identical to the "
                           f"tree's on {case['name']}")
@@ -3501,7 +3511,7 @@ def k1_measure_phase(dev, bwd_row, step_case, chunk, seal_case, baselines):
             for op, fn in ops.items():
                 order = list(zip(variants, names))
                 for src, name in order + order[::-1]:
-                    with other_library(k1, src):
+                    with other_library(src):
                         times[name][op] += time_device_ms(fn) / 2
             if g is not None and case is cases[0]:
                 plain_ms = busy_ms(lambda: halo_encode_bwd_plain(
@@ -3717,7 +3727,7 @@ def hash_measure_phase(dev, rows, trainers, ds800, baselines):
                 check(err_b <= BWD_RTOL * scale,
                       f"hash bwd on {case['name']}: {err_b} of {scale}")
             for src, name in zip(variants[1:], names[1:]):
-                with other_library(k3, src):
+                with other_library(src):
                     check(torch.equal(hash_encode(t, x, cfg), ref_f),
                           f"hash fwd of {name} is not bit-identical to the "
                           f"tree's on {case['name']}")
@@ -3731,7 +3741,7 @@ def hash_measure_phase(dev, rows, trainers, ds800, baselines):
             times = {name: {} for name in names}
             for op, fn in ops.items():
                 for name, pair in in_turns(
-                        k3, baselines, lambda fn=fn: time_device_ms(fn)).items():
+                        baselines, lambda fn=fn: time_device_ms(fn)).items():
                     times[name][op] = sum(pair) / 2
             requests, in_warp, distinct = sector_counts(x, cfg, f)
         # the forward reads only the table sectors its samples touch; the
@@ -3834,10 +3844,10 @@ def hash_measure_phase(dev, rows, trainers, ds800, baselines):
     for case in swept:
         cfg, t, x, g = case["cfg"], case["table"], case["x"], case["g"]
         with torch.no_grad():
-            fwd = in_turns(k3, baselines, lambda: time_device_ms(
+            fwd = in_turns(baselines, lambda: time_device_ms(
                 lambda: hash_encode(t, x, cfg)))
             bwd = None if g is None else in_turns(
-                k3, baselines, lambda: time_device_ms(
+                baselines, lambda: time_device_ms(
                     lambda: hash_encode_bwd(g, x, cfg, t.shape[0])))
         out_mib = x.shape[0] * cfg.num_levels * t.shape[1] * 4 / 2**20
         print(f"[hash sizes] {case['name']} (M={x.shape[0]}, F={t.shape[1]}, "
@@ -3864,8 +3874,12 @@ def hash_measure_phase(dev, rows, trainers, ds800, baselines):
     for backend, tr in trainers.items():
         step_ms(tr, 4)
         view_s(viewers[backend])
-        st = in_turns(k3, baselines, lambda: step_ms(tr))
-        vw = in_turns(k3, baselines, lambda: view_s(viewers[backend]))
+        st = in_turns(baselines, lambda: step_ms(tr))
+        # autograd launches the step's backward from a thread of its own
+        check(all(other_build(src) in k3._BWD._bound for src in baselines),
+              f"{backend}: a train step under a baseline did not launch its "
+              f"backward from that baseline's build")
+        vw = in_turns(baselines, lambda: view_s(viewers[backend]))
         for name in names:
             print(f"[hash path] {backend}, {name}: "
                   f"{np.mean(st[name]):.3f} ms per train step "
@@ -5385,7 +5399,7 @@ def field_head_phase(dev, tr7, ds800, seal_head):
     from seal3d_tpu_torch.config import (build_options, build_train_config,
                                          common_parser)
     from seal3d_tpu_torch.models import ngp
-    from seal3d_tpu_torch.models.mlp import mlp_init
+    from seal3d_tpu_torch.ops.mlp import mlp_init
     from seal3d_tpu_torch.ops import field_head as fh
     from seal3d_tpu_torch.train.trainer import Trainer
 

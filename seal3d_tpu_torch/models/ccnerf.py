@@ -17,7 +17,7 @@ group's ranks by importance and fuses the groups, `compress` keeps the top
 ranks of each family, `compose` adds another object with its rigid
 transform and blends colours by the softmax of the objects' densities, and
 `upsample_model` resizes the factors. The factor lookups are TensoRF's
-`sample_plane` / `sample_line` (models/tensorf.py) with align_corners False.
+`sample_plane` / `sample_line` (ops/tensorf_vm.py) with align_corners False.
 """
 
 from __future__ import annotations
@@ -29,9 +29,10 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from seal3d_tpu_torch.models.tensorf import (MAT_IDS, VEC_IDS, _resize,
-                                             sample_line, sample_plane)
+from seal3d_tpu_torch.models.tensorf import _resize
 from seal3d_tpu_torch.ops.sh import sh_encode, sh_encode_dim
+from seal3d_tpu_torch.ops.tensorf_vm import (MAT_IDS, VEC_IDS, sample_line,
+                                             sample_plane)
 from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
 
 FAMILIES = ("vec_density", "mat_density", "vec_color", "mat_color")

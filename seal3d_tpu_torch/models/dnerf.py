@@ -29,15 +29,15 @@ from typing import Optional
 
 import torch
 
-from seal3d_tpu_torch.models.mlp import mlp_apply, mlp_init
 from seal3d_tpu_torch.ops.freq import freq_encode, freq_encode_dim
 from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig, hashgrid_encode,
                                            hashgrid_init)
+from seal3d_tpu_torch.ops.mlp import mlp_apply, mlp_init
 from seal3d_tpu_torch.ops.sh import sh_encode, sh_encode_dim
 from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
 
 # the params' MLPs, whose weight gradients their casts sum over a data mesh
-# (models/mlp.py)
+# (ops/mlp.py)
 MLP_NETS = ("deform_net", "basis_net", "ambient_net", "sigma_net",
             "color_net")
 

@@ -17,17 +17,17 @@ from typing import Optional
 
 import torch
 
-from seal3d_tpu_torch.models.mlp import mlp_apply, mlp_init
 from seal3d_tpu_torch.ops.field_head import field_head
 from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig, hashgrid_encode,
                                            hashgrid_encode_stacked,
                                            hashgrid_init)
+from seal3d_tpu_torch.ops.mlp import mlp_apply, mlp_init
 from seal3d_tpu_torch.ops.sh import sh_encode, sh_encode_dim
 from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
 from seal3d_tpu_torch.train.checkpoint import map_tree
 
 # the params' MLPs, whose weight gradients their casts sum over a data mesh
-# (models/mlp.py)
+# (ops/mlp.py)
 MLP_NETS = ("sigma_net", "color_net", "bg_net")
 
 

@@ -11,10 +11,10 @@ from typing import Optional
 
 import torch
 
-from seal3d_tpu_torch.models.mlp import mlp_apply, mlp_init
-from seal3d_tpu_torch.models.tensorf import _clip
 from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig, hashgrid_encode,
                                            hashgrid_init)
+from seal3d_tpu_torch.ops.mlp import mlp_apply, mlp_init
+from seal3d_tpu_torch.ops.tensorf_vm import _clip
 
 
 @dataclass(frozen=True)

@@ -10,19 +10,13 @@ reference's keys and shapes:
 
 Density sums the rank products of three plane x line pairs (VM) or of three
 lines (CP); colour features go through the basis matrix, a frequency
-encoding and a 3x128 MLP. The factor lookups (`sample_plane`,
-`sample_line`) are the reference's explicit bilinear / linear formula over
-four / two gathers, zero outside [-1, 1] (not `F.grid_sample`), each one
-autograd Function whose backward scatters the factor's cotangent with
-`index_add_` from the saved corner indices and weights. The VM pairs go
-through `ops/tensorf_vm.py`'s `vm_features`: on CUDA tensors a hand-written
-kernel pair that gathers, blends and multiplies each plane x line product
-in one pass and scatters its cotangents with run-merged 16-byte atomics;
-on CPU tensors the composition of those Functions. CP, CCNeRF and the
-background net call the Functions. Both paths run under
-`span("tensorf.sample")`, their backwards under `span("tensorf.scatter")`,
-and the module's host counters (`lookup_rows`, `scatter_rows`, ...) count
-their work as calls are issued. The resolution surgeries
+encoding and a 3x128 MLP. The factor lookups live in ops/tensorf_vm.py:
+`vm_features` for the VM pairs (on CUDA tensors a hand-written kernel pair
+that gathers, blends and multiplies each plane x line product in one pass
+and scatters its cotangents with run-merged 16-byte atomics), and
+`sample_plane` / `sample_line` for CP and the background net; this module
+binds them, their axes and their host counters (`lookup_rows`,
+`scatter_rows`, ...) under the same names. The resolution surgeries
 (`upsample_model`, `shrink_model`) run between train segments and return a
 new params tree; the caller re-creates the optimizer state.
 """
@@ -37,33 +31,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from seal3d_tpu_torch.models.mlp import mlp_apply, mlp_init
 from seal3d_tpu_torch.ops.freq import freq_encode, freq_encode_dim
+from seal3d_tpu_torch.ops.mlp import mlp_apply, mlp_init
 from seal3d_tpu_torch.ops.morton import morton3d_invert
-from seal3d_tpu_torch.ops.tensorf_vm import vm_features
+# the factor lookups, and their counters, which the benchmark reads as
+# attributes of this module
+from seal3d_tpu_torch.ops.tensorf_vm import (  # noqa: F401
+    MAT_IDS, VEC_IDS, lookup_points, lookup_rows, sample_line, sample_plane,
+    scatter_atomic_comps, scatter_points, scatter_rows, vm_features)
 from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
-from seal3d_tpu_torch.utils.trace import span
 
-# plane i spans world axes MAT_IDS[i]; line i spans axis VEC_IDS[i]
-MAT_IDS = ((0, 1), (0, 2), (1, 2))
 # the params' MLPs, whose weight gradients their casts sum over a data mesh
-# (models/mlp.py; basis_mat is an fp32 product)
+# (ops/mlp.py; basis_mat is an fp32 product)
 MLP_NETS = ("color_net", "bg_net")
-VEC_IDS = (2, 1, 0)
-
-# the factor lookups' work over the process, counted on the host as calls
-# are issued (no device sync), by factor kind: rows x components gathered
-# forward (`lookup_rows`) and scattered by the backward (`scatter_rows`),
-# and the rows alone (`lookup_points`, `scatter_points`)
-lookup_rows = {"plane": 0, "line": 0}
-lookup_points = {"plane": 0, "line": 0}
-scatter_rows = {"plane": 0, "line": 0}
-scatter_points = {"plane": 0, "line": 0}
-# the components the VM kernel's backward sent to the L2 by atomics (its
-# run merge sends fewer than the 4 a plane row and 2 a line row that
-# `scatter_rows` counts), by device: an int64 device tensor made on first
-# use, added to on the device (read it after a sync)
-scatter_atomic_comps = {}
 
 
 @dataclass(frozen=True)
@@ -133,182 +113,6 @@ def init(cfg: TensoRFConfig, generator: Optional[torch.Generator] = None,
                    + [cfg.hidden_dim_bg] * (cfg.num_layers_bg - 1) + [3])
         params["bg_net"] = mlp_init(bg_dims, **mkw)
     return params
-
-
-# ------------------------------------------------------- interpolation cores
-
-def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
-    """jnp.clip as min(max(x, lo), hi): at x == lo or hi the gradient is
-    split in half, as JAX's is. The bounds are filled on x's device
-    (`new_full`): a tensor made from host data would be a blocking copy."""
-    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
-                         x.new_full((), hi))
-
-
-def _plane_corners(cx, cy, h: int, w: int, align_corners: bool):
-    """(inside mask, first corner's flat index, fx, fy) of bilinear lookups
-    at coords in [-1, 1]; cx indexes W, cy indexes H."""
-    inside = (cx.abs() <= 1.0) & (cy.abs() <= 1.0)
-    if align_corners:
-        x = (_clip(cx, -1.0, 1.0) + 1.0) * 0.5 * (w - 1)
-        y = (_clip(cy, -1.0, 1.0) + 1.0) * 0.5 * (h - 1)
-    else:
-        x = _clip((cx + 1.0) * 0.5 * w - 0.5, 0.0, w - 1.0)
-        y = _clip((cy + 1.0) * 0.5 * h - 0.5, 0.0, h - 1.0)
-    x0 = torch.floor(x).to(torch.int64).clamp(0, w - 2)
-    y0 = torch.floor(y).to(torch.int64).clamp(0, h - 2)
-    return inside, y0 * w + x0, x - x0, y - y0
-
-
-def _plane_blend(v, fx, fy, inside):
-    v00, v01, v10, v11 = v
-    out = (v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy)
-           + v10 * (1 - fx) * fy + v11 * fx * fy)
-    return out * inside[None, :]
-
-
-def _line_corners(c, d: int, align_corners: bool):
-    """(inside mask, first corner's index, fx) of linear lookups."""
-    inside = c.abs() <= 1.0
-    if align_corners:
-        x = (_clip(c, -1.0, 1.0) + 1.0) * 0.5 * (d - 1)
-    else:
-        x = _clip((c + 1.0) * 0.5 * d - 0.5, 0.0, d - 1.0)
-    x0 = torch.floor(x).to(torch.int64).clamp(0, d - 2)
-    return inside, x0, x - x0
-
-
-def _line_blend(v, fx, inside):
-    v0, v1 = v
-    return (v0 * (1 - fx) + v1 * fx) * inside[None, :]
-
-
-def _rows(g, inside):
-    """The cotangent [R, N] of a lookup as [N, R] rows, zero outside: the
-    scatters add whole rows of R components into a factor laid out [cells,
-    R], so that neighbouring threads add into neighbouring addresses where
-    the [R, cells] layout has the rows of one cell, which neighbouring
-    points share, contend for one address."""
-    return g.T.contiguous() * inside[:, None]
-
-
-def _slope(u, lo: float, hi: float, scale: float):
-    """d(`_clip`(u, lo, hi) * scale) / du: `scale` inside, half of it at
-    either bound (the split of JAX's clip), zero outside."""
-    return (((u > lo) & (u < hi)).to(u.dtype)
-            + 0.5 * ((u == lo) | (u == hi)).to(u.dtype)) * scale
-
-
-def _coord_slope(c, n: int, align_corners: bool):
-    """d(position in cells) / d(coordinate) of `_plane_corners` /
-    `_line_corners` along an axis of n cells."""
-    if align_corners:
-        return _slope(c, -1.0, 1.0, 0.5 * (n - 1))
-    return _slope((c + 1.0) * 0.5 * n - 0.5, 0.0, n - 1.0, 0.5 * n)
-
-
-class _SamplePlane(torch.autograd.Function):
-    """Bilinear lookup of a plane factor: four gathers and the blend
-    forward; backward, the factor's cotangent as four `index_add_` scatters
-    of [N, R] rows (`_rows`) from the saved corner index, weights and inside
-    mask. The coordinates and the gathered corners are kept only where the
-    coordinates need a cotangent: the blend's derivative along each axis."""
-
-    @staticmethod
-    def forward(ctx, plane, cx, cy, align_corners):
-        with span("tensorf.sample"):
-            r, h, w = plane.shape
-            lookup_rows["plane"] += cx.shape[0] * r
-            lookup_points["plane"] += cx.shape[0]
-            inside, i00, fx, fy = _plane_corners(cx, cy, h, w, align_corners)
-            flat = plane.reshape(r, h * w)
-            v = (flat.index_select(1, i00), flat.index_select(1, i00 + 1),
-                 flat.index_select(1, i00 + w),
-                 flat.index_select(1, i00 + w + 1))
-            keep = (cx, cy, *v) if any(ctx.needs_input_grad[1:3]) else ()
-            ctx.save_for_backward(i00, fx, fy, inside, *keep)
-            ctx.shape, ctx.align_corners = (r, h, w), align_corners
-            return _plane_blend(v, fx, fy, inside)
-
-    @staticmethod
-    def backward(ctx, g):
-        with span("tensorf.scatter"):
-            i00, fx, fy, inside, *coords = ctx.saved_tensors
-            r, h, w = ctx.shape
-            d_plane = d_cx = d_cy = None
-            if ctx.needs_input_grad[0]:
-                scatter_rows["plane"] += i00.shape[0] * r
-                scatter_points["plane"] += i00.shape[0]
-                gm = _rows(g, inside)
-                g0, g1 = gm * (1 - fy)[:, None], gm * fy[:, None]
-                acc = g.new_zeros((h * w, r))
-                acc.index_add_(0, i00, g0 * (1 - fx)[:, None])
-                acc.index_add_(0, i00 + 1, g0 * fx[:, None])
-                acc.index_add_(0, i00 + w, g1 * (1 - fx)[:, None])
-                acc.index_add_(0, i00 + w + 1, g1 * fx[:, None])
-                d_plane = acc.T.contiguous().view(r, h, w)
-            if coords:
-                cx, cy, v00, v01, v10, v11 = coords
-                gi = g * inside[None, :]
-                d_fx = (gi * ((v01 - v00) * (1 - fy)
-                              + (v11 - v10) * fy)).sum(0)
-                d_fy = (gi * ((v10 - v00) * (1 - fx)
-                              + (v11 - v01) * fx)).sum(0)
-                d_cx = d_fx * _coord_slope(cx, w, ctx.align_corners)
-                d_cy = d_fy * _coord_slope(cy, h, ctx.align_corners)
-            return d_plane, d_cx, d_cy, None
-
-
-class _SampleLine(torch.autograd.Function):
-    """Linear lookup of a line factor: two gathers and the blend forward;
-    backward, two `index_add_` scatters (as `_SamplePlane`)."""
-
-    @staticmethod
-    def forward(ctx, line, c, align_corners):
-        with span("tensorf.sample"):
-            r, d = line.shape
-            lookup_rows["line"] += c.shape[0] * r
-            lookup_points["line"] += c.shape[0]
-            inside, x0, fx = _line_corners(c, d, align_corners)
-            v = (line.index_select(1, x0), line.index_select(1, x0 + 1))
-            keep = (c, *v) if ctx.needs_input_grad[1] else ()
-            ctx.save_for_backward(x0, fx, inside, *keep)
-            ctx.shape, ctx.align_corners = (r, d), align_corners
-            return _line_blend(v, fx, inside)
-
-    @staticmethod
-    def backward(ctx, g):
-        with span("tensorf.scatter"):
-            x0, fx, inside, *coords = ctx.saved_tensors
-            r, d = ctx.shape
-            d_line = d_c = None
-            if ctx.needs_input_grad[0]:
-                scatter_rows["line"] += x0.shape[0] * r
-                scatter_points["line"] += x0.shape[0]
-                gm = _rows(g, inside)
-                acc = g.new_zeros((d, r))
-                acc.index_add_(0, x0, gm * (1 - fx)[:, None])
-                acc.index_add_(0, x0 + 1, gm * fx[:, None])
-                d_line = acc.T.contiguous()
-            if coords:
-                c, v0, v1 = coords
-                d_fx = (g * inside[None, :] * (v1 - v0)).sum(0)
-                d_c = d_fx * _coord_slope(c, d, ctx.align_corners)
-            return d_line, d_c, None
-
-
-def sample_plane(plane: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
-                 align_corners: bool = True) -> torch.Tensor:
-    """Bilinear sample of [R, H, W] at coords in [-1, 1] (zero outside); cx
-    indexes W, cy indexes H. Returns [R, N]."""
-    return _SamplePlane.apply(plane, cx, cy, align_corners)
-
-
-def sample_line(line: torch.Tensor, c: torch.Tensor,
-                align_corners: bool = True) -> torch.Tensor:
-    """Linear sample of [R, D] at coords in [-1, 1] (zero outside).
-    Returns [R, N]."""
-    return _SampleLine.apply(line, c, align_corners)
 
 
 def _normalize(params, x):

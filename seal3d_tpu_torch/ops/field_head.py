@@ -23,21 +23,24 @@ with it the rare bf16 rounding of a hidden activation (the .cu's note).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from seal3d_tpu_torch.models.mlp import mlp_apply
 from seal3d_tpu_torch.ops.hashgrid import split_stacked
+from seal3d_tpu_torch.ops.mlp import mlp_apply
 from seal3d_tpu_torch.ops.sh import sh_encode
 from seal3d_tpu_torch.ops.trunc_exp import trunc_exp
+from seal3d_tpu_torch.runtime.kernels import Kernel
 
 # [in, out] of sigma_net's and color_net's layers, and [L, 2F] of the
 # stacked encode, that the kernel is built for
 KERNEL_WIDTHS = ((32, 64), (64, 16), (63, 64), (64, 64), (64, 3))
 KERNEL_LEVELS = (16, 4)
 KERNEL_SH_DEGREE = 4
+
+# enc, d, the five weights, then sigma, rgb (forward) or g_sigma, g_rgb,
+# g_enc (backward), M, stream
+_FWD = Kernel("field_head_fwd", "ppppppppp l s")
+_BWD = Kernel("field_head_bwd", "pppppppppp l s")
 
 
 def field_head_plain(enc: torch.Tensor, d: torch.Tensor, sigma_net,
@@ -123,8 +126,7 @@ def field_head_fwd(enc, d, ws):
     sigma = torch.empty((m,), dtype=torch.float32, device=enc.device)
     rgb = torch.empty((m, 3), dtype=torch.float32, device=enc.device)
     if m:
-        _run("field_head_fwd", enc, d, ws, [sigma, rgb], m)
-        field_head_fwd.launches += 1
+        _FWD.launch(field_head_fwd, enc, d, *ws, sigma, rgb, m)
     return sigma, rgb
 
 
@@ -142,8 +144,7 @@ def field_head_bwd(enc, d, ws, g_sigma, g_rgb):
                          f"{tuple(g_rgb.shape)}")
     g_enc = torch.empty_like(enc)
     if m:
-        _run("field_head_bwd", enc, d, ws, [g_sigma, g_rgb, g_enc], m)
-        field_head_bwd.launches += 1
+        _BWD.launch(field_head_bwd, enc, d, *ws, g_sigma, g_rgb, g_enc, m)
     return g_enc
 
 
@@ -166,25 +167,3 @@ def _check(enc, d, ws) -> int:
             f"[M, 16, 4] (16-byte aligned), d [M, 3] and weights "
             f"{KERNEL_WIDTHS}; got {got}")
     return m
-
-
-@functools.cache
-def _entry(name: str):
-    from seal3d_tpu_torch.runtime.build import load_library
-
-    fn = getattr(load_library(), name)
-    p = ctypes.c_void_p
-    n_ptrs = 9 if name == "field_head_fwd" else 10
-    fn.argtypes = [p] * n_ptrs + [ctypes.c_longlong, p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _run(name, enc, d, ws, outs, m):
-    """Launch entry `name` on the current stream; raise on a CUDA error."""
-    with torch.cuda.device(enc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry(name)(*[t.data_ptr() for t in [enc, d, *ws, *outs]], m,
-                          stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

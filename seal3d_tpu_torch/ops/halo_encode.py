@@ -35,7 +35,6 @@ gradients summed over 'data' by the trainer.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Optional
 
@@ -44,6 +43,7 @@ import torch
 
 from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig, gather_encode,
                                            gather_encode_bwd)
+from seal3d_tpu_torch.runtime.kernels import Kernel
 
 
 def _level_range(cfg: HashGridConfig, level_begin: int,
@@ -228,21 +228,10 @@ def _level_arrays(cfg: HashGridConfig):
     return scales, res
 
 
-@functools.cache
-def _entry(name: str):
-    from seal3d_tpu_torch.runtime.build import load_library
-
-    return bind_entry(load_library(), name)
-
-
-def bind_entry(lib: ctypes.CDLL, name: str):
-    """The C entry `name` (halo_encode_fwd or halo_encode_bwd) of a build of
-    csrc/halo_encode.cu, with its argument types set."""
-    fn = getattr(lib, name)
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, p, i64, i32, i32, i32, i64, p, p, i32, p, i64]
-    fn.restype = ctypes.c_int
-    return fn
+# x, valid, table | cotangent, out | gtab, M, levels, F, P, T, scales,
+# resolutions, smoothstep, stream, row stride of out | cotangent
+_FWD = Kernel("halo_encode_fwd", "pppp liiil pp i s l")
+_BWD = Kernel("halo_encode_bwd", "pppp liiil pp i s l")
 
 
 def _check_inputs(device, x, valid, cfg):
@@ -270,27 +259,21 @@ def _check_inputs(device, x, valid, cfg):
     return t_rows, period
 
 
-def _run(name, table_like, x, valid, feats, levels, f_dim, period, t_rows,
-         cfg):
-    """Launch entry `name` over `levels` on the current stream; raise on a
-    CUDA error. `table_like` is the range's table (forward) or its gradient
-    (backward); `feats` the [M, n, F] feature tensor (forward: out; backward:
-    the cotangent), whose rows may be strided."""
+def _run(kernel, table_like, x, valid, feats, levels, f_dim, period, t_rows,
+         cfg, counter):
+    """Launch `kernel` over `levels`. `table_like` is the range's table
+    (forward) or its gradient (backward); `feats` the [M, n, F] feature
+    tensor (forward: out; backward: the cotangent), whose rows may be
+    strided."""
     scales, res = _level_arrays(cfg)
     first = 4 * levels.start            # byte offset of the range's entries
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        third, fourth = ((table_like, feats) if name == "halo_encode_fwd"
-                         else (feats, table_like))
-        rc = _entry(name)(x.data_ptr(),
-                          None if valid is None else valid.data_ptr(),
-                          third.data_ptr(), fourth.data_ptr(), x.shape[0],
-                          len(levels), f_dim, period, t_rows,
-                          scales.ctypes.data + first, res.ctypes.data + first,
-                          int(cfg.interpolation == "smoothstep"), stream,
-                          feats.stride(0) if x.shape[0] > 1 else 0)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    third, fourth = ((table_like, feats) if kernel is _FWD
+                     else (feats, table_like))
+    kernel.launch(counter, x, valid, third, fourth, x.shape[0], len(levels),
+                  f_dim, period, t_rows, scales.ctypes.data + first,
+                  res.ctypes.data + first,
+                  int(cfg.interpolation == "smoothstep"),
+                  feats.stride(0) if x.shape[0] > 1 else 0)
 
 
 def _launch_fwd(table, x, valid, cfg, levels, out, counter):
@@ -311,9 +294,8 @@ def _launch_fwd(table, x, valid, cfg, levels, out, counter):
                           device=table.device)
     if m == 0:
         return out
-    _run("halo_encode_fwd", table, x, valid, out, levels, f_dim, period,
-         t_rows, cfg)
-    counter.launches += 1
+    _run(_FWD, table, x, valid, out, levels, f_dim, period, t_rows, cfg,
+         counter)
     return out
 
 
@@ -335,7 +317,6 @@ def _launch_bwd(g, x, valid, cfg, n_rows, levels, counter):
     gtab = torch.zeros((n_rows, f_dim), dtype=torch.float32, device=g.device)
     if m == 0:
         return gtab
-    _run("halo_encode_bwd", gtab, x, valid, g, levels, f_dim, period, t_rows,
-         cfg)
-    counter.launches += 1
+    _run(_BWD, gtab, x, valid, g, levels, f_dim, period, t_rows, cfg,
+         counter)
     return gtab

@@ -38,7 +38,6 @@ tensors, the kernel for CUDA tensors (no fallback).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -47,6 +46,7 @@ import torch
 from seal3d_tpu_torch.ops.hashgrid import (HashGridConfig,
                                            corner_indices_weights,
                                            gather_encode, gather_encode_bwd)
+from seal3d_tpu_torch.runtime.kernels import Kernel
 
 
 def hash_encode_plain(table: torch.Tensor, x: torch.Tensor,
@@ -147,21 +147,10 @@ def _level_arrays(cfg: HashGridConfig):
             np.asarray([s for _, _, _, _, s in lp], np.float32))
 
 
-@functools.cache
-def _entry(name: str):
-    from seal3d_tpu_torch.runtime.build import load_library
-
-    return bind_entry(load_library(), name)
-
-
-def bind_entry(lib: ctypes.CDLL, name: str):
-    """The C entry `name` (hash_encode_fwd or hash_encode_bwd) of a build of
-    csrc/hash_encode.cu, with its argument types set."""
-    fn = getattr(lib, name)
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, i64, i32, i32, i64, p, p, p, p, p, i32, i32, p]
-    fn.restype = ctypes.c_int
-    return fn
+# x, table | cotangent, out | gtab, M, L, F, total_params, offsets, sizes,
+# resolutions, hash flags, scales, align_corners, smoothstep, stream
+_FWD = Kernel("hash_encode_fwd", "ppp liil ppppp ii s")
+_BWD = Kernel("hash_encode_bwd", "ppp liil ppppp ii s")
 
 
 def _check_inputs(device, x, cfg, n_rows):
@@ -185,19 +174,13 @@ def _check_inputs(device, x, cfg, n_rows):
                          f"{tuple(x.shape)} on {x.device}")
 
 
-def _run(name, a, x, out, f_dim, cfg):
-    """Launch entry `name` on the current stream; raise on a CUDA error."""
+def _run(kernel, a, x, out, f_dim, cfg, counter):
     offsets, sizes, res, use_hash, scales = _level_arrays(cfg)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry(name)(x.data_ptr(), a.data_ptr(), out.data_ptr(),
-                          x.shape[0], cfg.num_levels, f_dim, cfg.total_params,
-                          offsets.ctypes.data, sizes.ctypes.data,
-                          res.ctypes.data, use_hash.ctypes.data,
-                          scales.ctypes.data, int(cfg.align_corners),
-                          int(cfg.interpolation == "smoothstep"), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    kernel.launch(counter, x, a, out, x.shape[0], cfg.num_levels, f_dim,
+                  cfg.total_params, offsets.ctypes.data, sizes.ctypes.data,
+                  res.ctypes.data, use_hash.ctypes.data, scales.ctypes.data,
+                  int(cfg.align_corners),
+                  int(cfg.interpolation == "smoothstep"))
 
 
 def _launch_fwd(table, x, cfg):
@@ -213,8 +196,7 @@ def _launch_fwd(table, x, cfg):
                       device=table.device)
     if m == 0:
         return out
-    _run("hash_encode_fwd", table, x, out, f_dim, cfg)
-    hash_encode.launches += 1
+    _run(_FWD, table, x, out, f_dim, cfg, hash_encode)
     return out
 
 
@@ -231,6 +213,5 @@ def _launch_bwd(g, x, cfg, n_rows):
     gtab = torch.zeros((n_rows, f_dim), dtype=torch.float32, device=g.device)
     if m == 0:
         return gtab
-    _run("hash_encode_bwd", g, x, gtab, f_dim, cfg)
-    hash_encode_bwd.launches += 1
+    _run(_BWD, g, x, gtab, f_dim, cfg, hash_encode_bwd)
     return gtab

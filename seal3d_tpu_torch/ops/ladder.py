@@ -30,20 +30,24 @@ counterpart. `ladder_plan_plain` writes the same expressions over [N] and
 float32 rounding of the cell formulas.
 
 `ladder_plan` dispatches on the rays' device: the plain version for CPU
-tensors, the kernel for CUDA tensors (no fallback).
+tensors, the kernel for CUDA tensors (no fallback). `ladder_plan_kernel`
+turns its outputs into the march's `GroupPlan`, and
+`march_rays_flat_2level_kernel` is the two-level eval march of
+ops/raymarch.py with that plan as its level 1.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
+from typing import Optional
 
 import torch
 
 from seal3d_tpu_torch.ops.bitfield import GRID_BYTES
 from seal3d_tpu_torch.ops.morton import morton3d
-
-SQRT3 = 1.7320508075688772
+from seal3d_tpu_torch.ops.raymarch import (SQRT3, GroupPlan, MarchedRays,
+                                           pack_groups_expand_fine,
+                                           pooled_dilated)
+from seal3d_tpu_torch.runtime.kernels import Kernel
 
 
 def _packbits(mask: torch.Tensor) -> torch.Tensor:
@@ -62,8 +66,6 @@ def pack_tables(bitfield: torch.Tensor, pool: int = 64):
     single-cascade occupancy bitfield: the 16^3 view in Morton order and the
     3^3-dilated pool^3 view in x-major linear order, both bit-packed like
     the bitfield. Built once per bitfield and shared by every chunk."""
-    from seal3d_tpu_torch.ops.raymarch import pooled_dilated
-
     if bitfield.dtype != torch.uint8 or bitfield.shape != (GRID_BYTES,):
         raise ValueError(f"pack_tables needs a single-cascade uint8 bitfield "
                          f"[{GRID_BYTES}]; got {bitfield.dtype} "
@@ -168,23 +170,9 @@ def ladder_plan(rays_o, rays_d, coarse16, pooled_dil, fine, aabb,
 ladder_plan.launches = 0
 
 
-@functools.cache
-def _entry(name: str):
-    from seal3d_tpu_torch.runtime.build import load_library
-
-    return bind_entry(load_library(), name)
-
-
-def bind_entry(lib: ctypes.CDLL, name: str):
-    """The C entry `name` (ladder_plan) of a build of csrc/ladder.cu, with
-    its argument types set."""
-    fn = getattr(lib, name)
-    p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_float)
-    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, f32, f32, f32, i32,
-                   i32, i32, i32, p]
-    fn.restype = ctypes.c_int
-    return fn
+# rays_o, rays_d, aabb, coarse16, pooled_dil, fine, t0, fars, keep, cnt, N,
+# bound, min_near, dt_min, CG, group, n_coarse, pool, stream
+_PLAN = Kernel("ladder_plan", "pppppppppp l fff iiii s")
 
 
 def _launch(rays_o, rays_d, coarse16, pooled_dil, fine, aabb, bound,
@@ -215,14 +203,54 @@ def _launch(rays_o, rays_d, coarse16, pooled_dil, fine, aabb, bound,
     keep = torch.empty((n, cg), dtype=torch.bool, device=dev)
     if n == 0:
         return t0, far, keep, cnt
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry("ladder_plan")(
-            rays_o.data_ptr(), rays_d.data_ptr(), aabb.data_ptr(),
-            coarse16.data_ptr(), pooled_dil.data_ptr(), fine.data_ptr(),
-            t0.data_ptr(), far.data_ptr(), keep.data_ptr(), cnt.data_ptr(),
-            n, bound, min_near, dt_min, cg, group, n_coarse, pool, stream)
-    if rc != 0:
-        raise RuntimeError(f"ladder_plan launch failed: CUDA error {rc}")
-    ladder_plan.launches += 1
+    _PLAN.launch(ladder_plan, rays_o, rays_d, aabb, coarse16, pooled_dil,
+                 fine, t0, far, keep, cnt, n, bound, min_near, dt_min, cg,
+                 group, n_coarse, pool)
     return t0, far, keep, cnt
+
+
+def ladder_plan_kernel(rays_o, rays_d, bitfield, bound: float, max_steps: int,
+                       num_candidates: int, group: int, min_near: float,
+                       aabb: Optional[torch.Tensor], coarse_steps: int,
+                       pool: int = 64, tables=None):
+    """(GroupPlan, fine_cnt [N] f32) through `ladder_plan` in place of
+    near_far_from_aabb + coarse_tighten + group_plan: kg = -1, no jitter,
+    single cascade, occ_stride == group (callers gate:
+    RenderOptions.tl_kernel_ok). fine_cnt is an upper bound of each ray's
+    fine repack demand. `tables` is `pack_tables(bitfield, pool)` where the
+    caller built it once for many chunks."""
+    if aabb is None:
+        aabb = torch.tensor([-bound] * 3 + [bound] * 3, dtype=torch.float32,
+                            device=rays_o.device)
+    if tables is None:
+        tables = pack_tables(bitfield, pool=pool)
+    t0, fars, keep, cnt = ladder_plan(
+        rays_o.contiguous(), rays_d.contiguous(), *tables, aabb, bound=bound,
+        min_near=min_near, max_steps=max_steps,
+        num_candidates=num_candidates, group=group, n_coarse=coarse_steps,
+        pool=pool)
+    stride = torch.ones((rays_o.shape[0],), dtype=torch.int64,
+                        device=rays_o.device)
+    return GroupPlan(t0=t0, fars=fars, stride=stride, keep=keep,
+                     dt_min=2.0 * SQRT3 / max_steps), cnt
+
+
+def march_rays_flat_2level_kernel(rays_o, rays_d, bitfield, bound: float,
+                                  cascades: int, max_steps: int, k: int,
+                                  budget: int, num_candidates: int,
+                                  min_near: float = 0.05,
+                                  aabb: Optional[torch.Tensor] = None,
+                                  occ_stride: int = 4, coarse_steps: int = 32,
+                                  group: int = 4, over: float = 1.5,
+                                  pool: int = 64, tables=None) -> MarchedRays:
+    """march_rays_flat_2level with its level 1 (the group plan) from the
+    ladder kernel K4; pack, expand and repack are unchanged."""
+    if cascades != 1:
+        raise ValueError("the two-level march is single-cascade")
+    plan, _ = ladder_plan_kernel(rays_o, rays_d, bitfield, bound, max_steps,
+                                 num_candidates, group, min_near, aabb,
+                                 coarse_steps, pool, tables=tables)
+    budget_g = max(-(-int(round(budget * over)) // (group * 16)) * 16, 16)
+    return pack_groups_expand_fine(plan, plan.keep, 0, rays_o, rays_d,
+                                   bitfield, bound, cascades, group, budget,
+                                   budget_g, occ_stride)

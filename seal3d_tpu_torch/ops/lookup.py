@@ -24,10 +24,9 @@ the kernel for CUDA tensors (no fallback).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
+
+from seal3d_tpu_torch.runtime.kernels import Kernel
 
 
 def _rows(idx: torch.Tensor, t_rows: int) -> torch.Tensor:
@@ -110,25 +109,12 @@ multilevel_lookup.launches = 0
 multilevel_lookup_bwd.launches = 0
 
 
-@functools.cache
-def _entry(name: str):
-    from seal3d_tpu_torch.runtime.build import load_library
-
-    return bind_entry(load_library(), name)
+# table | cotangent, idx, out | gtab, L, N, T, F, stream
+_FWD = Kernel("multilevel_lookup_fwd", "ppp ill i s")
+_BWD = Kernel("multilevel_lookup_bwd", "ppp ill i s")
 
 
-def bind_entry(lib: ctypes.CDLL, name: str):
-    """The C entry `name` (multilevel_lookup_fwd or multilevel_lookup_bwd)
-    of a build of csrc/lookup.cu, with its argument types set."""
-    fn = getattr(lib, name)
-    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, p, i32, i64, i64, i32, p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _run(name, a, idx, out, t_rows, f_dim):
-    """Launch entry `name` on the current stream; raise on a CUDA error."""
+def _run(kernel, a, idx, out, t_rows, f_dim, counter):
     dev = a.device
     if (idx.device != dev or idx.dtype != torch.int32
             or not idx.is_contiguous()):
@@ -140,13 +126,7 @@ def _run(name, a, idx, out, t_rows, f_dim):
         raise ValueError(f"multilevel_lookup needs contiguous, aligned f32 "
                          f"rows of width 2 or 4; got {a.dtype} "
                          f"{tuple(a.shape)}")
-    levels, n = idx.shape
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry(name)(a.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                          levels, n, t_rows, f_dim, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    kernel.launch(counter, a, idx, out, *idx.shape, t_rows, f_dim)
 
 
 def _launch_fwd(table, idx):
@@ -156,9 +136,8 @@ def _launch_fwd(table, idx):
                       device=table.device)
     if n == 0:
         return out
-    _run("multilevel_lookup_fwd", table, idx, out, table.shape[0] // levels,
-         f_dim)
-    multilevel_lookup.launches += 1
+    _run(_FWD, table, idx, out, table.shape[0] // levels, f_dim,
+         multilevel_lookup)
     return out
 
 
@@ -171,6 +150,5 @@ def _launch_bwd(g, idx, n_rows):
     gtab = torch.zeros((n_rows, f_dim), dtype=torch.float32, device=g.device)
     if n == 0:
         return gtab
-    _run("multilevel_lookup_bwd", g, idx, gtab, n_rows // levels, f_dim)
-    multilevel_lookup_bwd.launches += 1
+    _run(_BWD, g, idx, gtab, n_rows // levels, f_dim, multilevel_lookup_bwd)
     return gtab

@@ -26,7 +26,7 @@ an all_reduce of a zero-filled buffer, at n times its bytes.
 its shard already. The ambient mesh (`set_mesh`, read by `current_mesh`)
 takes the place of `jax.sharding.set_mesh`: the level-sharded encode reads
 it, as the reference's encoder reads the abstract mesh, and so do the MLP
-weight casts (models/mlp.py).
+weight casts (ops/mlp.py).
 """
 
 from __future__ import annotations

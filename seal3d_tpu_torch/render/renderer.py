@@ -27,12 +27,12 @@ from typing import Optional
 import torch
 
 from seal3d_tpu_torch.ops.composite import composite_dense, composite_flat
+from seal3d_tpu_torch.ops.ladder import march_rays_flat_2level_kernel
 from seal3d_tpu_torch.ops.raymarch import (SQRT3, MarchedRays,
                                            compact_flat_direct, group_plan,
                                            march_candidates, march_rays,
                                            march_rays_flat,
                                            march_rays_flat_2level,
-                                           march_rays_flat_2level_kernel,
                                            march_rays_flat_grouped,
                                            march_rays_grid,
                                            near_far_from_aabb,

@@ -115,11 +115,6 @@ def level_shard(table: torch.Tensor, grid_cfg, n_model: int,
     return table[j * rows:(j + 1) * rows]
 
 
-def join_level_shards(shards) -> torch.Tensor:
-    """The [L*T, F] table from its n_model level shards, in model order."""
-    return torch.cat(list(shards))
-
-
 def state_to_arrays(state: Any, full: bool = True) -> dict:
     """{'/'-joined path: numpy array} of every tensor of `state`; full=False
     drops the optimizer state (the reference's light checkpoint)."""

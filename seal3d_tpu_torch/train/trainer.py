@@ -51,10 +51,10 @@ from seal3d_tpu_torch.data.provider import rand_poses
 from seal3d_tpu_torch.data.rays import (ERROR_MAP_RES, error_map_cells,
                                         error_map_inds, get_full_rays,
                                         get_rays)
-from seal3d_tpu_torch.ops.ladder import pack_tables
-from seal3d_tpu_torch.ops.raymarch import (group_plan, ladder_plan_kernel,
-                                           march_candidates, march_rays_grid,
-                                           occupancy_at, ray_stride_keep)
+from seal3d_tpu_torch.ops.ladder import ladder_plan_kernel, pack_tables
+from seal3d_tpu_torch.ops.raymarch import (group_plan, march_candidates,
+                                           march_rays_grid, occupancy_at,
+                                           ray_stride_keep)
 from seal3d_tpu_torch.parallel import mesh as pmesh
 from seal3d_tpu_torch.render.occupancy import (OccupancyState, mark_untrained,
                                                occupancy_init,
@@ -348,7 +348,7 @@ class Trainer:
         sample count summed, in one all_reduce. The MLP weights' gradients
         (the field's MLP_NETS) are left out: their casts' backwards summed
         each use's cotangent over 'data' before its bf16 rounding, as the
-        reference does (models/mlp.py), so they arrive global. Under tensor
+        reference does (ops/mlp.py), so they arrive global. Under tensor
         parallelism the model ranks then take model rank 0's gradients of
         the replicated leaves (`_agree_over_model`). Unchanged without a
         mesh."""

@@ -19,16 +19,6 @@ def _to_u8(img: np.ndarray) -> np.ndarray:
     return (np.clip(np.asarray(img, np.float32), 0.0, 1.0) * 255).astype(np.uint8)
 
 
-def _depth_u8(depth: np.ndarray) -> np.ndarray:
-    """Normalize a depth map to an 8-bit grayscale frame (reference divides by
-    the running max before writing, nerf/utils.py:705)."""
-    d = np.asarray(depth, np.float32)
-    dmax = float(d.max())
-    if dmax > 0:
-        d = d / dmax
-    return (np.clip(d, 0.0, 1.0) * 255).astype(np.uint8)
-
-
 def write_test_outputs(
     render_view: Callable[[int], Tuple[np.ndarray, Optional[np.ndarray]]],
     n_views: int,

@@ -30,8 +30,8 @@ import pytest
 import torch
 
 from seal3d_tpu_torch.models import ngp
-from seal3d_tpu_torch.models.mlp import mlp_init
 from seal3d_tpu_torch.ops import field_head as fh
+from seal3d_tpu_torch.ops.mlp import mlp_init
 
 M = 2**16 + 37          # a ragged tail: not a multiple of the 16-row tile
 FEW_ULPS = 8 * 2.0**-23  # of the tensor's largest value

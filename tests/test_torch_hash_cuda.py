@@ -21,6 +21,8 @@ ray-ordered inputs of tests/test_torch_hash_cases.py and batch sizes around
 every switch.
 """
 
+import ctypes
+
 import test_torch_hash_cases as hash_cases
 import numpy as np
 import pytest
@@ -174,6 +176,27 @@ def test_hashgrid_encode_dispatches_to_the_kernel(cuda_device, backend):
     assert multilevel_lookup.launches == before5 + 1
     ref5 = hash_encode_plain(tab5, x, k5).reshape(100, -1)
     assert float((out5 - ref5).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_library_routes_the_autograd_backward(cuda_device):
+    """kernels.library routes every launch while its block runs, the
+    backward too, which autograd runs on a thread of its own for CUDA
+    tensors: both entries get bound from the routed build."""
+    from seal3d_tpu_torch.ops import hash_encode as k3
+    from seal3d_tpu_torch.runtime.build import load_library
+    from seal3d_tpu_torch.runtime.kernels import library
+
+    other = ctypes.CDLL(load_library()._name)   # the tree's build, anew
+    cfg = HashGridConfig(num_levels=4, log2_hashmap_size=12, backend="bucket")
+    tab = torch.rand((cfg.total_params, 2), device=cuda_device,
+                     requires_grad=True)
+    x = torch.rand((100, 3), device=cuda_device)
+    before = hash_encode_bwd.launches
+    with library(other):
+        hashgrid_encode(tab, x, cfg).sum().backward()
+    assert hash_encode_bwd.launches == before + 1
+    assert other in k3._FWD._bound and other in k3._BWD._bound
 
 
 def _check_both(cfg, x, f, device):

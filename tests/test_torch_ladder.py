@@ -123,7 +123,7 @@ def test_plain_equals_group_plan_and_bounds_the_fine_repack(setup):
     _, bf, ro, rd, aabb = setup
     plan = trm.group_plan(_t(ro), _t(rd), _t(bf), cascades=1, k=48,
                           aabb=_t(aabb), coarse_steps=32, kg=-1, **KW)
-    kplan, cnt = trm.ladder_plan_kernel(
+    kplan, cnt = tladder.ladder_plan_kernel(
         _t(ro), _t(rd), _t(bf), 1.0, 512, 256, 4, 0.05, _t(aabb), 32, 64)
     assert torch.equal(kplan.keep, plan.keep)
     assert torch.equal(kplan.t0, plan.t0) and torch.equal(kplan.fars, plan.fars)

@@ -247,7 +247,7 @@ def test_dp2_gloo_matches_jax_and_single_process(scene):
         assert not find_batch_collectives(
             r["log"], NUM_RAYS * OPTS["num_candidates"] // 2)
         # one sum per MLP weight use before its bf16 rounding
-        # (models/mlp.py), then one of every other gradient, the loss and
+        # (ops/mlp.py), then one of every other gradient, the loss and
         # the sample count: each gradient is summed once
         weights = sorted(v.size for k, v in single["params"].items()
                          if k.endswith("/w"))

@@ -21,6 +21,7 @@ import torch
 from benchmark.reference import tensorf as ref
 from seal3d_tpu_torch.models import tensorf
 from seal3d_tpu_torch.models.tensorf import TensoRFConfig
+from seal3d_tpu_torch.ops.tensorf_vm import _clip
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "benchmark", "configs", "seal-tensorf-VM.json")
@@ -181,11 +182,11 @@ def _plane_formula(plane, cx, cy, align_corners):
     r, h, w = plane.shape
     inside = (cx.abs() <= 1.0) & (cy.abs() <= 1.0)
     if align_corners:
-        x = (tensorf._clip(cx, -1.0, 1.0) + 1.0) * 0.5 * (w - 1)
-        y = (tensorf._clip(cy, -1.0, 1.0) + 1.0) * 0.5 * (h - 1)
+        x = (_clip(cx, -1.0, 1.0) + 1.0) * 0.5 * (w - 1)
+        y = (_clip(cy, -1.0, 1.0) + 1.0) * 0.5 * (h - 1)
     else:
-        x = tensorf._clip((cx + 1.0) * 0.5 * w - 0.5, 0.0, w - 1.0)
-        y = tensorf._clip((cy + 1.0) * 0.5 * h - 0.5, 0.0, h - 1.0)
+        x = _clip((cx + 1.0) * 0.5 * w - 0.5, 0.0, w - 1.0)
+        y = _clip((cy + 1.0) * 0.5 * h - 0.5, 0.0, h - 1.0)
     x0 = torch.floor(x).to(torch.int64).clamp(0, w - 2)
     y0 = torch.floor(y).to(torch.int64).clamp(0, h - 2)
     fx, fy = x - x0, y - y0
@@ -202,9 +203,9 @@ def _line_formula(line, c, align_corners):
     r, d = line.shape
     inside = c.abs() <= 1.0
     if align_corners:
-        x = (tensorf._clip(c, -1.0, 1.0) + 1.0) * 0.5 * (d - 1)
+        x = (_clip(c, -1.0, 1.0) + 1.0) * 0.5 * (d - 1)
     else:
-        x = tensorf._clip((c + 1.0) * 0.5 * d - 0.5, 0.0, d - 1.0)
+        x = _clip((c + 1.0) * 0.5 * d - 0.5, 0.0, d - 1.0)
     x0 = torch.floor(x).to(torch.int64).clamp(0, d - 2)
     fx = x - x0
     return ((line.index_select(1, x0) * (1 - fx)
