@@ -94,7 +94,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    --pretraining_epochs 50 --extra_epochs 500`): the pretrain loss falls;
    timer.json, seal.json and options.json exist; the proxied dataset has
    depths; K1's forward ran once per field call and its backward once per
-   pretrain batch and finetune step; all test views are finite; on 4 val
+   pretrain batch and finetune step, the fused Adam and EMA once per
+   pretrain batch; all test views are finite; on 4 val
    poses the student against the mapped teacher reads >= 25 dB, and on the
    pixels the edit changes the unedited teacher reads lower than the
    student against the same target (the edit took); after
@@ -203,7 +204,9 @@ Phases, each of which raises (exit code != 0) when it fails:
    inside the bound, the lifted stroke in the edited mesh alone. K1's
    launch counts equal the field calls of every edit.
 21. TensoRF and Seal on it (it runs after phase 20; of the table's kernels
-   only the VM lookups' pair runs here, and in (a) and (c) it must): (a)
+   only the VM lookups' pair runs here, and in (a) and (c) it must, and
+   the fused Adam and EMA, once per pretrain batch of (c) and never in (a)
+   or (b)): (a)
    `python -m seal3d_tpu_torch.main_tensoRF synthetic -O --bound 1.0
    --dt_gamma 0 --min_near 0.05 --max_steps 512 --iters 1200 --H 256 --W 256
    --upsample_model_steps 250 450 650 850 1100` (VM at the CLI's full
@@ -342,11 +345,21 @@ Phases, each of which raises (exit code != 0) when it fails:
    pretraining batch's 2^19 rows against the plain composition (error and
    share of rows with a bf16 flip, gated at 2e-2 and 2%), device times
    beside the plain composition's and the byte bound.
+28. Adam and the EMA as one launch (`adam_ema_rows`, `[adam ema]` lines;
+   it runs after phase 21, alone: `python3 -c 'import chip_smoke, torch;
+   chip_smoke.adam_ema_rows(torch.device("cuda"), (0, 0))'`) at the
+   benchmark cells' leaf sets (NGP's two T=2^19 tables moved and five MLP
+   leaves EMA-only; TensoRF VM-192 at 300^3, sixteen leaves moved and
+   `aabb`): three steps bit for bit against the plain chain, the kernel's
+   device time (CUDA-graph replays) beside the plain chain's, the same
+   chain as `torch._foreach_*` calls and the byte bound, launches a step
+   (one), and the host's microseconds a call. The rows' launches are the
+   kernel's in phase 14's NGP edit and phase 21c's TensoRF edit.
 The line before the last is the kernel table as JSON (nine rows for the
 nine Pallas call sites, K1 over a level range twice, on one card and
 across ranks; hash_encode_bwd is both K2 and K3's backward; two more for
-the field head and two for the TensoRF VM lookups, which replace no
-Pallas kernel; each
+the field head, two for the TensoRF VM lookups and two for the fused
+Adam and EMA, which replace no Pallas kernel; each
 with its launches on the main paths, its error, its time, the plain
 version's, the bound from this run's shapes and, where one PyTorch call
 computes the same function, that call's time; a row whose own time is
@@ -623,7 +636,7 @@ def main(argv=None):
         lap("13")
         teacher_ckpt = os.path.join(ws, "train", "checkpoints",
                                     f"ngp_step{TRAIN_STEPS:07d}.npz")
-        fwd, bwd, k4_seal, seal_case, seal_head = seal_phase(
+        fwd, bwd, k4_seal, seal_case, seal_head, seal_adam = seal_phase(
             dev, os.path.join(ws, "seal"), teacher_ckpt)
         k1_fwd["launches"] += fwd
         k1_bwd["launches"] += bwd
@@ -651,8 +664,10 @@ def main(argv=None):
         k1_fwd["max_abs_err"] = max(k1_fwd["max_abs_err"], err)
         lap("20")
         torch.cuda.empty_cache()
-        vm_rows = tensorf_phase(dev, os.path.join(ws, "tensorf"))
+        vm_rows, tf_adam = tensorf_phase(dev, os.path.join(ws, "tensorf"))
         lap("21")
+        adam_rows = adam_ema_rows(dev, (seal_adam, tf_adam))
+        lap("28")
         torch.cuda.empty_cache()
         fwd, bwd, fwd_h, bwd_h, err, dn_tr = families_phase(
             dev, os.path.join(ws, "families"))
@@ -675,7 +690,7 @@ def main(argv=None):
         lap("25")
     print(f"[time] wall seconds by phase: {json.dumps(seconds)}")
     kernels = [k1_fwd, k1_bwd, k1_tp, k1_ranks, *hash_rows, k4, *k5_rows,
-               *head_rows, *vm_rows]
+               *head_rows, *vm_rows, *adam_rows]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for row in kernels:
@@ -1959,10 +1974,12 @@ def lookup_bwd_measure(dev, timed, baselines) -> float:
 def seal_phase(dev, ws, teacher_ckpt):
     """Phase 14 -> (K1 forward launches, K1 backward launches, K4 launches)
     of the bbox edit through the CLI and of the edited views' renders, the
-    K1 arguments of its first pretraining batch, and the field head's
-    (forward, backward) launches of the edit."""
+    K1 arguments of its first pretraining batch, the field head's
+    (forward, backward) launches of the edit, and the fused Adam and EMA's
+    (one a pretraining batch)."""
     from seal3d_tpu_torch import main_SealNeRF
     from seal3d_tpu_torch.config import common_parser, load_dataset
+    from seal3d_tpu_torch.ops.adam import adam_ema
     from seal3d_tpu_torch.ops.field_head import field_head_bwd, field_head_fwd
     from seal3d_tpu_torch.ops.halo_encode import halo_encode, halo_encode_bwd
     from seal3d_tpu_torch.ops.hash_encode import hash_encode, hash_encode_bwd
@@ -1977,7 +1994,7 @@ def seal_phase(dev, ws, teacher_ckpt):
                      "--pretraining_epochs", str(epochs), "--extra_epochs",
                      str(steps), "--workspace", ws]
     for fn in (halo_encode, halo_encode_bwd, hash_encode, hash_encode_bwd,
-               ladder_plan, field_head_fwd, field_head_bwd):
+               ladder_plan, field_head_fwd, field_head_bwd, adam_ema):
         fn.launches = 0
     t0 = time.perf_counter()
     with capture_k1(lambda x: x.shape[0] == 2**19, first_only=True) as seen:
@@ -1985,6 +2002,7 @@ def seal_phase(dev, ws, teacher_ckpt):
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     head = field_head_fwd.launches, field_head_bwd.launches
+    adam_n = adam_ema.launches
     check(len(seen) == 1, "no pretraining batch of 2^19 points was seen")
     seal_case = dict(seen[0], name="Seal pretraining batch (shell points)")
     fwd, bwd = halo_encode.launches, halo_encode_bwd.launches
@@ -2007,6 +2025,10 @@ def seal_phase(dev, ws, teacher_ckpt):
           f"chunks, {calls['test']} test chunks)")
     check(head == (head_calls, calls["batches"]),
           f"field head launches {head} != ({head_calls}, {calls['batches']})")
+    print(f"[seal] fused Adam and EMA launches {adam_n} (one a pretrain "
+          f"batch, {calls['batches']})")
+    check(adam_n == calls["batches"], f"fused Adam and EMA launches "
+                                      f"{adam_n} != {calls['batches']}")
     check(len(st.render_stats) == 8
           and all(s_["nonfinite"] == 0 for s_ in st.render_stats),
           "edited test views: count or non-finite pixels")
@@ -2046,7 +2068,7 @@ def seal_phase(dev, ws, teacher_ckpt):
     check(d_img <= 1e-5 and d_dep <= 1e-4,
           f"edited views differ with K4: {d_img} {d_dep}")
     check(k4 > 0 and k4 == expect, f"K4 launches {k4} != {expect}")
-    return fwd, bwd, k4, seal_case, head
+    return fwd, bwd, k4, seal_case, head, adam_n
 
 
 def edit_outputs(st, ws, epochs, head):
@@ -2565,10 +2587,11 @@ CP_STEPS, CP_UPSAMPLE, MIN_CP_GAIN_DB = 300, 150, 2.0   # phase 21b
 
 def kernel_counters():
     """Every kernel wrapper of the table, by name (their launch counts)."""
-    from seal3d_tpu_torch.ops import (halo_encode, hash_encode, ladder,
+    from seal3d_tpu_torch.ops import (adam, halo_encode, hash_encode, ladder,
                                       lookup, tensorf_vm)
 
-    return {"halo_encode": halo_encode.halo_encode,
+    return {"adam_ema": adam.adam_ema,
+            "halo_encode": halo_encode.halo_encode,
             "halo_encode_bwd": halo_encode.halo_encode_bwd,
             "halo_encode_levels": halo_encode.halo_encode_levels,
             "hash_encode": hash_encode.hash_encode,
@@ -2584,7 +2607,9 @@ def tensorf_phase(dev, ws):
     """Phase 21: (a) TensoRF VM through main_tensoRF at full width, (b) CP
     at 128x128, (c) main_SealTensoRF on (a)'s teacher, (d) the VM lookups'
     kernel pair on a batch of (c). Of the table's kernels only that pair
-    runs, in (a) and (c). -> its two kernel rows."""
+    runs, in (a) and (c), and the fused Adam and EMA, once a pretraining
+    batch of (c). -> the pair's two kernel rows, and the fused Adam and
+    EMA's launches in (c)."""
     from seal3d_tpu_torch import main_SealTensoRF, main_tensoRF
     from seal3d_tpu_torch.config import common_parser, load_dataset
     from seal3d_tpu_torch.models import tensorf
@@ -2743,6 +2768,9 @@ def tensorf_phase(dev, ws):
     check(same and not differ, ".pth round trip (CP) changed the field")
     del cp, untrained, loaded, a, b
     torch.cuda.empty_cache()
+    adam_ab = read_counters(counters)["adam_ema"]
+    check(adam_ab == 0, f"the fused Adam and EMA ran {adam_ab} times in "
+                        f"(a) and (b), which train through _apply_grads")
 
     # ---- (c) Seal on (a)'s teacher
     ws_c = os.path.join(ws, "seal")
@@ -2786,13 +2814,19 @@ def tensorf_phase(dev, ws):
     launched = read_counters(counters)
     print(f"[tensorf] kernel launches over phase 21: {launched}")
     vm = {k: launched.pop(k) for k in ("vm_features", "vm_features_bwd")}
+    adam_c = launched.pop("adam_ema")
+    batches = TF_SEAL_EPOCHS * sum(v["n_batches"]
+                                   for v in st.pretrain_data.values())
+    check(adam_c == batches, f"the fused Adam and EMA ran {adam_c} times "
+                             f"in (c), not once a pretraining batch "
+                             f"({batches})")
     check(vm_a[0] > 0 and vm_a[1] > 0 and all(
         v > u for v, u in zip(vm.values(), vm_a)),
         f"the VM lookups' kernels did not run in (a) and (c): (a) {vm_a}, "
         f"phase 21 {vm}")
     check(not any(launched.values()), "another kernel ran on the TensoRF "
                                       "path")
-    return tensorf_vm_rows(dev, st, tuple(vm.values()))
+    return tensorf_vm_rows(dev, st, tuple(vm.values())), adam_c
 
 
 VM_ROWS = 2**19     # phase 21d: a Seal-3D pretraining batch
@@ -2932,6 +2966,142 @@ def tensorf_vm_rows(dev, st, launches):
             dict(common, name="tensorf VM bwd", launches=launches[1],
                  max_abs_err=err_b, ms=k_bwd, plain_ms=p_bwd,
                  library_ms=lib_bwd, **bwd_bound)]
+
+
+def adam_ema_rows(dev, launches):
+    """Phase 28: Adam and the EMA as one launch (ops/adam.py) at the
+    benchmark cells' leaf sets, against the plain chain (three steps, bit
+    for bit), timed beside it and beside the same chain as
+    `torch._foreach_*` calls -> the two kernel rows, whose launches are
+    `launches`: the kernel's on the main paths (phase 14's NGP edit, phase
+    21c's TensoRF edit)."""
+    import math
+
+    from seal3d_tpu_torch.models import ngp, tensorf
+    from seal3d_tpu_torch.ops import adam as fused
+    from seal3d_tpu_torch.train.checkpoint import map_tree, map_trees
+    from seal3d_tpu_torch.train.optim import Optimizer, apply_updates
+
+    decay = 0.95
+    opt = Optimizer(0.07, math.inf)
+
+    def plain(grads, state, params, ema):
+        updates, state = opt.update(grads, state)
+        params = {**params, **apply_updates({k: params[k] for k in grads},
+                                            updates)}
+        return params, state, map_trees(
+            lambda e, p: e * decay + p * (1.0 - decay), ema, params)
+
+    rows = []
+    for name, main_path, params, moved in (
+            ("NGP", launches[0], ngp.init(ngp.NGPConfig(
+                grid_backend="bucket"), device=dev), lambda k: "encoder" in k),
+            ("TensoRF", launches[1], tensorf.init(tensorf.TensoRFConfig(
+                resolution=(300, 300, 300)), device=dev),
+             lambda k: k != "aabb")):
+        gen = torch.Generator(device=dev).manual_seed(28)
+        keys = [k for k in params if moved(k)]
+        ema = map_tree(params, lambda _, t: t + 0.01 * torch.randn(
+            t.shape, generator=gen, device=dev))
+
+        def grads_of():
+            return map_tree({k: params[k] for k in keys}, lambda _, t: (
+                torch.randn(t.shape, generator=gen, device=dev)
+                * (torch.rand(t.shape, generator=gen, device=dev) < 0.5)))
+
+        state = opt.init({k: params[k] for k in keys})
+        a = b = (params, state, ema)
+        err = 0.0
+        for _ in range(3):
+            g = grads_of()
+            a = opt.update_with_ema(g, a[1], a[0], a[2], decay)
+            b = plain(g, b[1], b[0], b[2])
+            for x, y in zip(flatten_leaves(a), flatten_leaves(b)):
+                err = max(err, float((x.float() - y.float()).abs().max()))
+        check(err == 0.0, f"adam_ema at {name}'s leaves: {err} off the "
+                          f"plain chain")
+        g, (params3, state3, ema3) = grads_of(), a
+        moved_n = sum(t.numel() for k in keys for t in flatten_leaves(
+            params[k]))
+        frozen_n = sum(t.numel() for k in params if not moved(k)
+                       for t in flatten_leaves(params[k]))
+        with torch.no_grad():
+            ms = time_device_ms(lambda: opt.update_with_ema(
+                g, state3, params3, ema3, decay))
+            plain_ms = busy_ms(lambda: plain(g, state3, params3, ema3))
+            per_step = count_launches(lambda: opt.update_with_ema(
+                g, state3, params3, ema3, decay))
+            plain_launches = count_launches(
+                lambda: plain(g, state3, params3, ema3))
+            lib_ms = time_device_ms(foreach_chain(
+                opt, g, state3, params3, ema3, decay, keys))
+            torch.cuda.synchronize()
+            calls = 200
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                opt.update_with_ema(g, state3, params3, ema3, decay)
+            host_us = (time.perf_counter() - t0) / calls * 1e6
+            torch.cuda.synchronize()
+        n_bytes = (fused.MOVED_BYTES * moved_n
+                   + fused.EMA_ONLY_BYTES * frozen_n)
+        bnd = bound(n_bytes, 20 * moved_n + 3 * frozen_n)
+        print(f"[adam ema] {name}: {moved_n} moved and {frozen_n} EMA-only "
+              f"elements in {len(flatten_leaves(params))} leaves: kernel "
+              f"{ms:.4f} ms ({n_bytes / ms / 1e6:.1f} GB/s, "
+              f"{100 * bnd['bound_ms'] / ms:.1f}% of the byte bound "
+              f"{bnd['bound_ms']:.4f}), plain {plain_ms:.4f} ms in "
+              f"{plain_launches} launches, torch._foreach_* {lib_ms:.4f} "
+              f"ms; launches a step {per_step} (on the main path "
+              f"{main_path}); host {host_us:.1f} us a call; max error {err}")
+        check(per_step == 1, f"adam_ema at {name}'s leaves: {per_step} "
+                             f"launches a step")
+        rows.append(dict(
+            name=f"adam ema ({name} leaves)", route="CUDA C++, nvcc + ctypes",
+            source="seal3d_tpu_torch/csrc/adam_ema.cu",
+            replaces="none (XLA fuses optax's chain on the TPU)",
+            launches=main_path, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, **bnd))
+    return rows
+
+
+def flatten_leaves(tree) -> list:
+    from seal3d_tpu_torch.train.checkpoint import flatten_tree
+
+    return [t for _, t in flatten_tree(tree)]
+
+
+def foreach_chain(opt, grads, state, params, ema, decay, keys):
+    """The same step as `torch._foreach_*` calls over the leaf lists, its
+    scalars formed on the host (so a CUDA graph holds it)."""
+    b1, b2 = opt.b1, opt.b2
+    count = 3     # any step: the time does not depend on it
+    bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
+    g = flatten_leaves({k: grads[k] for k in keys})
+    p = flatten_leaves({k: params[k] for k in keys})
+    m = flatten_leaves(state[0].mu)
+    v = flatten_leaves(state[0].nu)
+    e = flatten_leaves({k: ema[k] for k in keys})
+    fp = flatten_leaves({k: params[k] for k in params if k not in keys})
+    fe = flatten_leaves({k: ema[k] for k in params if k not in keys})
+
+    def step():
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
+                                torch._foreach_mul(m, b1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
+            torch._foreach_mul(v, b2))
+        den = torch._foreach_add(
+            torch._foreach_sqrt(torch._foreach_div(nu, bc2)), opt.eps)
+        upd = torch._foreach_mul(
+            torch._foreach_div(torch._foreach_div(mu, bc1), den), -opt.lr)
+        new_p = torch._foreach_add(p, upd)
+        new_e = torch._foreach_add(torch._foreach_mul(e, decay),
+                                   torch._foreach_mul(new_p, 1 - decay))
+        new_fe = torch._foreach_add(torch._foreach_mul(fe, decay),
+                                    torch._foreach_mul(fp, 1 - decay))
+        return new_p, mu, nu, new_e, new_fe
+
+    return step
 
 
 # phase 23: the D-NeRF, CCNeRF and SDF CLIs at their families' full widths

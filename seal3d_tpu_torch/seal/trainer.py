@@ -438,32 +438,38 @@ class SealTrainer(Trainer):
 
     def _pretrain_step(self, batch: dict) -> torch.Tensor:
         """One pretrain batch: loss, gradients of the pretraining leaves,
-        Adam on them, EMA over every leaf. Returns the loss (a device
-        tensor)."""
+        Adam on them, EMA over every leaf (on the card one fused launch,
+        `Optimizer.update_with_ema`; on the CPU the plain chain). Returns
+        the loss (a device tensor)."""
         with span("pretrain.step"):
             st = self.state
             moved = _pretrain_leaves(st.params)
-            leaves = {k: v.detach().requires_grad_(True)
-                      for k, v in ckpt_io.flatten_tree(moved)}
+            leaves = [v.detach().requires_grad_(True)
+                      for v in ckpt_io.tree_leaves(moved)]
             with span("pretrain.forward"):
                 loss = self.pretrain_loss(
-                    {**st.params,
-                     **ckpt_io.map_tree(moved, lambda k, _: leaves[k])},
-                    batch)
+                    {**st.params, **ckpt_io.fill_tree(moved, leaves)}, batch)
             with span("pretrain.backward"):
-                grads = dict(zip(leaves, torch.autograd.grad(
-                    loss, list(leaves.values()))))
-            with torch.no_grad():
+                grads = torch.autograd.grad(loss, leaves)
+            d = self.cfg.ema_decay
+            if leaves[0].is_cuda:   # one launch: Adam, its apply, the EMA
                 with span("pretrain.adam"):
-                    updates, self._pre_opt_state = self._pre_opt.update(
-                        ckpt_io.map_tree(moved, lambda k, _: grads[k]),
-                        self._pre_opt_state)
-                    params = {**st.params, **apply_updates(moved, updates)}
-                with span("pretrain.ema"):
-                    d = self.cfg.ema_decay
-                    ema = ckpt_io.map_trees(
-                        lambda e, p: e * d + p * (1.0 - d), st.ema_params,
-                        params)
+                    params, self._pre_opt_state, ema = \
+                        self._pre_opt.update_with_ema(
+                            ckpt_io.fill_tree(moved, grads),
+                            self._pre_opt_state, st.params, st.ema_params, d)
+            else:
+                with torch.no_grad():
+                    with span("pretrain.adam"):
+                        updates, self._pre_opt_state = self._pre_opt.update(
+                            ckpt_io.fill_tree(moved, grads),
+                            self._pre_opt_state)
+                        params = {**st.params,
+                                  **apply_updates(moved, updates)}
+                    with span("pretrain.ema"):
+                        ema = ckpt_io.map_trees(
+                            lambda e, p: e * d + p * (1.0 - d),
+                            st.ema_params, params)
             self.state = st._replace(params=params, ema_params=ema)
             return loss.detach()
 

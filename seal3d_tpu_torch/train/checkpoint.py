@@ -91,6 +91,46 @@ def map_trees(fn, *trees):
     return map_tree(trees[0], lambda k, v: fn(v, *(o[k] for o in others)))
 
 
+def tree_leaves(tree: Any) -> list:
+    """The tensor leaves of a tree, in `flatten_tree`'s order, without
+    their paths (the cheap walk for a per-step hot path)."""
+    out = []
+    _collect(tree, out)
+    return out
+
+
+def _collect(tree, out: list):
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _collect(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _collect(v, out)
+    elif tree is not None:
+        raise TypeError(f"unsupported checkpoint leaf {type(tree)}")
+
+
+def fill_tree(tree: Any, leaves) -> Any:
+    """The same tree with its tensor leaves replaced by `leaves`, in
+    `tree_leaves`'s order (`map_tree` without the paths)."""
+    return _fill(tree, iter(leaves))
+
+
+def _fill(tree, it):
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, dict):
+        return {k: _fill(v, it) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_fill(v, it) for v in tree]
+    if isinstance(tree, tuple):
+        vals = [_fill(v, it) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return tree
+
+
 def params_from_jax(tree: Any, device=None) -> Any:
     """A JAX params tree (dicts/lists of arrays, e.g. `np.asarray`-mapped
     `ngp.init(...)`) -> the same tree of torch tensors on `device`."""

@@ -13,7 +13,9 @@ keys are the reference's (`opt_state/0/count`, `opt_state/0/mu/...`,
 `opt_state/0/nu/...`, `opt_state/1/count`; the empty `opt_state/2` has no
 leaf). Adam bias-corrects with its count after the increment; the schedule
 reads its own count before the increment. Everything is float32 with int32
-counts, as in the reference.
+counts, as in the reference. `Optimizer.update_with_ema` runs the update,
+its apply and the EMA over every parameter leaf as one launch of the fused
+kernel (ops/adam.py) on CUDA tensors.
 
 `GroupedOptimizer` is optax.multi_transform: a labelling function names the
 group of every leaf from its '/'-joined path, and each group has an
@@ -31,7 +33,10 @@ from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import torch
 
-from seal3d_tpu_torch.train.checkpoint import flatten_tree, map_tree, map_trees
+from seal3d_tpu_torch.ops.adam import adam_ema
+from seal3d_tpu_torch.train.checkpoint import (fill_tree, flatten_tree,
+                                               map_tree, map_trees,
+                                               tree_leaves)
 
 
 class AdamState(NamedTuple):
@@ -60,6 +65,7 @@ class Optimizer:
         self.lr, self.max_steps = lr, max_steps
         self.b1, self.b2, self.eps = b1, b2, eps
         self.net_scale = net_scale
+        self._spare = []    # update_with_ema's two output sets
 
     def init(self, params):
         dev = flatten_tree(params)[0][1].device
@@ -99,6 +105,47 @@ class Optimizer:
                  else ScheduleState(count=sched.count + 1))
         return updates, (AdamState(count=count, mu=mu, nu=nu), sched,
                          *state[2:])
+
+    @torch.no_grad()
+    def update_with_ema(self, grads, state, params: dict, ema, decay: float):
+        """`update`, `apply_updates` and the EMA e * decay + p * (1 - decay)
+        over every leaf of `ema` as one launch of the fused kernel
+        (ops/adam.py) on CUDA tensors: grads holds the moved top-level
+        entries of `params`, the others stay as they are -> (new params, new
+        state, new EMA), the plain chain's bit for bit. No tensor passed in
+        is written; the results go to one of two sets that alternate from
+        call to call (ops/adam.py), so a caller keeps a result only while it
+        passes it on. The kernel has no CPU mode: CPU callers run the plain
+        chain."""
+        flat_g = tree_leaves(grads)
+        adam, sched = state[:2]
+        keys = list(grads)
+        frozen = [k for k in ema if k not in grads]
+        # leaves in one order for every tree: by the top-level keys of
+        # grads, each entry in its own (shared) structure
+        scales = (None if self.net_scale == 1.0 else
+                  [1.0 if "encoder" in k else self.net_scale
+                   for k in keys for _ in tree_leaves(grads[k])])
+        out = adam_ema(
+            tree_leaves([params[k] for k in keys]), flat_g,
+            tree_leaves([adam.mu[k] for k in keys]),
+            tree_leaves([adam.nu[k] for k in keys]),
+            tree_leaves([ema[k] for k in keys]),
+            tree_leaves([params[k] for k in frozen]),
+            tree_leaves([ema[k] for k in frozen]), count=adam.count,
+            sched_count=None if self.max_steps is None else sched.count,
+            lr=self.lr, b1=self.b1, b2=self.b2, eps=self.eps, decay=decay,
+            max_steps=self.max_steps, scales=scales, spare=self._spare)
+        params = {**params, **fill_tree({k: params[k] for k in keys},
+                                        out.params)}
+        ema = {**ema, **fill_tree({k: ema[k] for k in keys + frozen},
+                                  out.ema + out.frozen_ema)}
+        mu = fill_tree({k: adam.mu[k] for k in keys}, out.mu)
+        nu = fill_tree({k: adam.nu[k] for k in keys}, out.nu)
+        if self.max_steps is not None:
+            sched = ScheduleState(count=out.sched_count)
+        return params, (AdamState(count=out.count, mu=mu, nu=nu), sched,
+                        *state[2:]), ema
 
 
 @torch.no_grad()
